@@ -1,0 +1,17 @@
+"""pydsproutines_tpu_torch: the PyTorch / CUDA port of pydsproutines_tpu.
+
+The receiver's main path (WOLA channelizer -> strongest channel ->
+frequency-scanning CAF peak search -> PSK demod) in PyTorch, with the two
+TPU kernels it reaches rewritten by hand for NVIDIA Hopper (CUDA C++ in
+``csrc/``, built with nvcc at first use on a CUDA tensor). CPU tensors take
+each kernel's plain PyTorch twin. The package never imports JAX.
+"""
+
+from pydsproutines_tpu_torch import models, ops, utils
+from pydsproutines_tpu_torch.models import WidebandReceiver
+from pydsproutines_tpu_torch.ops import (Channeliser, fast_xcorr,
+                                         select_wola_path, select_xcorr_path,
+                                         wola)
+
+__all__ = ["models", "ops", "utils", "WidebandReceiver", "Channeliser",
+           "fast_xcorr", "select_wola_path", "select_xcorr_path", "wola"]

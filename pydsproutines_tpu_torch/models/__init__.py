@@ -1,0 +1,3 @@
+from pydsproutines_tpu_torch.models.receiver import WidebandReceiver
+
+__all__ = ["WidebandReceiver"]

@@ -1,0 +1,119 @@
+"""Build and load the hand-written Hopper kernels.
+
+Every ``csrc/*.cu`` source of the package is compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, at first use,
+into ``pydsproutines_tpu_torch/_build/`` (git-ignored). The library's name
+carries a hash of the sources and flags, so an edited source is rebuilt and
+a stale library is never loaded. It is bound with ``ctypes``; nothing here
+includes PyTorch's headers, which keeps a cold build to seconds.
+
+Nothing is built or loaded on import: a CPU-only process imports the package
+freely and only a launch on a CUDA tensor reaches :func:`library`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of every entry point: (argtypes, restype)
+_SIGNATURES = {
+    "pdsp_wola_fused": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "pdsp_caf_peak": ([_P] * 10 + [_I] * 5 + [_P], _I),
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin; "
+                       "the Hopper kernels cannot be built")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+class BuildInfo:
+    """What the last :func:`library` call did: the library path, whether it
+    compiled (or found an up-to-date build), the seconds it took and the
+    compiler's output (``-Xptxas -v``: registers and shared memory per
+    kernel)."""
+    path: Path | None = None
+    compiled: bool = False
+    seconds: float = 0.0
+    log: str = ""
+
+
+build_info = BuildInfo()
+
+
+def _compile(out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_info.seconds = time.perf_counter() - t0
+    build_info.log = res.stdout + res.stderr
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{build_info.log}")
+    os.replace(tmp, out)                     # atomic: concurrent builds race safely
+    build_info.compiled = True
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed.
+    Raises RuntimeError when CUDA is unavailable or the build fails."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the Hopper kernels need an "
+                           "NVIDIA GPU (CPU tensors take the plain twins)")
+    out = BUILD_DIR / f"libpdsp_hopper_{_digest()}.so"
+    if not out.exists():
+        _compile(out)
+    build_info.path = out
+    lib = ctypes.CDLL(str(out))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
