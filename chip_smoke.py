@@ -6,16 +6,23 @@
 1. Builds the hand-written Hopper kernels from ``pydsproutines_tpu_torch/
    csrc`` (nvcc, sm_90a) and prints the build time.
 2. Checks each kernel against its plain PyTorch twin on the card at the
-   receiver's shapes: the WOLA channelizer at 131,072 rows x 64 channels with
-   2048 taps; the CAF peak search at n = 1,000,000 x 128 shifts and at
-   n = 1024 x 256 shifts on a 131,072-sample channel.
+   main path's shapes: the WOLA channelizer at 131,072 rows x 64 channels
+   with 2048 taps; the two-stage CAF peak search at n = 1,000,000 x 128
+   shifts and at n = 1024 x 256 shifts on a 131,072-sample channel; the
+   three-stage CAF peak search at n = 10,000,000 x 128 shifts, and at
+   shifts[0] > 0 in an rx that ends exactly at the last window; the
+   last-stage peak kernel on the (128, 1000, 1000) stage-1 output of a 1M
+   sweep over a sorted non-uniform list of 128 shifts, and that sweep's
+   route against torch.fft.
 3. Drives the main path through the public entry points, with every kernel's
    launch count set to 0 first: ``WidebandReceiver(64 ch, 2048 taps,
    template 1024, 256 shifts).run`` on an 8,388,608-sample wideband scene
    (a QPSK template on channel 1), then ``fast_xcorr(freqsearch=True)`` at
-   1M x 128 with a planted peak. Checks the routes, the launch counts, the
-   planted channel, shift and bin, and the receiver's answer against the
-   same receiver run on the CPU (plain twins).
+   1M x 128, at 10M x 128 ("fused3-hopper") and at 1M over the shift list
+   ("peak-kernel-hopper"), each with a planted peak. Checks the routes, the
+   launch counts, the planted channel, shift and bin, the receiver's answer
+   against the same receiver run on the CPU (plain twins), and both new
+   routes against the same fast_xcorr call on CPU tensors at a reduced size.
 4. Times each kernel, its twin and the whole receiver step on CUDA events
    (one warm-up, median of >= 3), each line tagged with the card's name and
    power limit.
@@ -47,6 +54,10 @@ CAF_RTOL = 1e-4
 NCH, TAPS, ROWS = 64, 2048, 131072
 N_BIG, SHIFTS_BIG = 1_000_000, 128
 N_RX, SHIFTS_RX, CHAN_LEN = 1024, 256, 131072
+N_3, SHIFTS_3 = 10_000_000, 128          # the three-stage kernel's sweep
+EDGE_S0, EDGE_STEP, EDGE_SHIFTS = 1000, 3, 8   # shifts[0] > 0, rx ends there
+N_4, SHIFTS_4, SPAN_4 = 1_000_000, 128, 1024   # 128 sorted shifts of 1024
+N_3_CPU, N_4_CPU = 2**21, 65536          # CPU comparison of the two routes
 
 
 def check(cond: bool, msg: str) -> None:
@@ -70,6 +81,48 @@ def planted_sweep(rng, n, num_shifts, s_star, f_star, device):
     rx[s_star: s_star + n] += cut * np.exp(2j * np.pi * f_star * t / n)
     return (torch.from_numpy(cut.astype(np.complex64)).to(device),
             torch.from_numpy(rx.astype(np.complex64)).to(device))
+
+
+def listed_sweep(rng, n, offsets, i_star, f_star, device):
+    """cutout, rx for a sweep over ``offsets`` with rx ending exactly at the
+    last window, the planted peak at (offsets[i_star], f_star)."""
+    import numpy as np
+    import torch
+    cut = (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    rxlen = int(offsets[-1]) + n
+    rx = 0.5 * (rng.standard_normal(rxlen) + 1j * rng.standard_normal(rxlen))
+    s = int(offsets[i_star])
+    rx[s: s + n] += cut * np.exp(2j * np.pi * f_star * np.arange(n) / n)
+    return (torch.from_numpy(cut.astype(np.complex64)).to(device),
+            torch.from_numpy(rx.astype(np.complex64)).to(device))
+
+
+def qf2_abs_err(km, pm, cut, rx, offsets, n) -> float:
+    """Largest kernel-vs-twin difference on the QF^2 scale (0..1) users
+    threshold."""
+    import torch
+    power = torch.cumsum((rx.abs() ** 2).double(), 0)
+    power = torch.cat([power.new_zeros(1), power])
+    norm = float((cut.abs() ** 2).sum(dtype=torch.float64)) * (
+        power[offsets + n] - power[offsets])
+    return float(((km.double() - pm.double()) / norm).abs().max())
+
+
+def hold_peaks(name, km, kb, pm, pb, i_star, f_star) -> float:
+    """Check a kernel's per-shift (peak, bin) against its twin's: finite,
+    same shape, per-shift peak within CAF_RTOL, the planted shift and bin
+    exact. Returns the per-shift relative error."""
+    import torch
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(km).all()) and km.shape == pm.shape,
+          f"{name} output shape or finiteness")
+    err = float(((km - pm).abs() / pm).max())
+    check(err < CAF_RTOL, f"{name} kernel vs twin rel err {err:.3e}")
+    ks, ps = int(torch.argmax(km)), int(torch.argmax(pm))
+    check(ks == ps == i_star, f"{name} peak shift {ks} / {ps}")
+    check(int(kb[ks]) == int(pb[ps]) == f_star,
+          f"{name} peak bin {int(kb[ks])} / {int(pb[ps])}")
+    return err
 
 
 def wideband_scene(rcv, n_wide: int, seed: int):
@@ -104,12 +157,17 @@ def main() -> int:
     from scipy import signal as sps
 
     from pydsproutines_tpu_torch.models import WidebandReceiver
+    from pydsproutines_tpu_torch.ops.fft import best_two_factor
     from pydsproutines_tpu_torch.ops.hopper import _build
-    from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (caf_peak,
-                                                                caf_peak_plain)
+    from pydsproutines_tpu_torch.ops.hopper.fft_peak import (
+        peak_sweep, stage2_peak, stage2_peak_plain, window_stage1)
+    from pydsproutines_tpu_torch.ops.hopper.fused_caf3 import (
+        caf3_peak, caf3_peak_plain)
+    from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (
+        caf_peak, caf_peak_plain, split_tables)
     from pydsproutines_tpu_torch.ops.hopper.wola_fused import (wola_fused,
                                                                wola_plain)
-    from pydsproutines_tpu_torch.ops.xcorr import fast_xcorr
+    from pydsproutines_tpu_torch.ops.xcorr import fast_xcorr, select_xcorr_path
     from pydsproutines_tpu_torch.utils.timing import Timer, median_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -158,31 +216,71 @@ def main() -> int:
         cc = cut.conj().resolve_conj().contiguous()
         km, kb = caf_peak(rx, cc, 0, 1, nshift, 128)
         pm, pb = caf_peak_plain(rx, cc, 0, 1, nshift, 128)
-        torch.cuda.synchronize()
-        err = float(((km - pm).abs() / pm).max())
-        check(bool(torch.isfinite(km).all()) and km.shape == (nshift,),
-              f"CAF n={n} output shape or finiteness")
-        check(err < CAF_RTOL, f"CAF n={n} kernel vs twin rel err {err:.3e}")
-        ks, ps = int(torch.argmax(km)), int(torch.argmax(pm))
-        check(ks == ps == s_star, f"CAF n={n} peak shift {ks} / {ps}")
-        check(int(kb[ks]) == int(pb[ps]) == f_star,
-              f"CAF n={n} peak bin {int(kb[ks])} / {int(pb[ps])}")
+        err = hold_peaks(f"CAF n={n}", km, kb, pm, pb, s_star, f_star)
         reps = 3 if n == N_BIG else 5
         k_ms = median_ms(lambda: caf_peak(rx, cc, 0, 1, nshift, 128), reps=reps)
         p_ms = median_ms(lambda: caf_peak_plain(rx, cc, 0, 1, nshift, 128),
                          reps=reps)
-        # absolute error on the QF^2 scale (0..1) users threshold
-        power = torch.cumsum((rx.abs() ** 2).double(), 0)
-        power = torch.cat([power.new_zeros(1), power])
-        norm = float((cut.abs() ** 2).sum(dtype=torch.float64)) * (
-            power[n: n + nshift] - power[:nshift])
         caf[n] = {"ms": k_ms, "plain_ms": p_ms, "rel_err": err,
-                  "max_abs_err": float(((km.double() - pm.double())
-                                        / norm).abs().max()),
+                  "max_abs_err": qf2_abs_err(
+                      km, pm, cut, rx, torch.arange(nshift, device=dev), n),
                   "cut": cut, "rx": rx, "s_star": s_star, "f_star": f_star}
         print(f"caf n={n} x {nshift} shifts: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, per-shift rel err {err:.3e}, peak at shift {ks} "
-              f"bin {int(kb[ks])} {tag}")
+              f"{p_ms:.4f} ms, per-shift rel err {err:.3e}, peak at shift "
+              f"{s_star} bin {f_star} {tag}")
+
+    # the three-stage kernel at 10M x 128, then at shifts[0] > 0 with rx
+    # ending exactly at the last window
+    offs3 = torch.arange(SHIFTS_3, device=dev)
+    cut3, rx3 = listed_sweep(rng, N_3, offs3.cpu().numpy(), 77, 1234567, dev)
+    cc3 = cut3.conj().resolve_conj().contiguous()
+    km, kb = caf3_peak(rx3, cc3, offs3)
+    pm, pb = caf3_peak_plain(rx3, cc3, offs3)
+    err3 = hold_peaks(f"caf3 n={N_3}", km, kb, pm, pb, 77, 1234567)
+    abs3 = qf2_abs_err(km, pm, cut3, rx3, offs3, N_3)
+    caf3_ms = median_ms(lambda: caf3_peak(rx3, cc3, offs3), reps=3)
+    caf3_plain_ms = median_ms(lambda: caf3_peak_plain(rx3, cc3, offs3), reps=3)
+    print(f"caf3 n={N_3} x {SHIFTS_3} shifts: kernel {caf3_ms:.4f} ms, plain "
+          f"{caf3_plain_ms:.4f} ms, per-shift rel err {err3:.3e}, QF^2 abs "
+          f"err {abs3:.3e} {tag}")
+    edge = torch.arange(EDGE_SHIFTS, device=dev) * EDGE_STEP + EDGE_S0
+    cute, rxe = listed_sweep(rng, N_3, edge.cpu().numpy(), 5, 4242, dev)
+    cce = cute.conj().resolve_conj().contiguous()
+    check(rxe.shape[0] == int(edge[-1]) + N_3, "edge rx length")
+    km, kb = caf3_peak(rxe, cce, edge)
+    pm, pb = caf3_peak_plain(rxe, cce, edge)
+    erre = hold_peaks("caf3 shifts[0] > 0 at the end of rx", km, kb, pm, pb,
+                      5, 4242)
+    print(f"caf3 n={N_3}, shifts {EDGE_S0} + {EDGE_STEP}*i, i < {EDGE_SHIFTS}, "
+          f"rx ends at the last window: per-shift rel err {erre:.3e}")
+    del rxe, cute, cce
+
+    # the last-stage peak kernel on a 1M sweep over a sorted shift list
+    offs4 = torch.from_numpy(np.sort(rng.choice(
+        SPAN_4, SHIFTS_4, replace=False))).to(dev)
+    cut4, rx4 = listed_sweep(rng, N_4, offs4.cpu().numpy(), 77, 54321, dev)
+    cc4 = cut4.conj().resolve_conj().contiguous()
+    n1, n2 = best_two_factor(N_4)
+    w1, tw4, w24 = split_tables(n1, n2, dev)
+    f1 = window_stage1(rx4, cc4, w1, offs4, n1, n2)
+    km, kb = stage2_peak(f1, tw4, w24)
+    pm, pb = stage2_peak_plain(f1, tw4, w24)
+    err4 = hold_peaks(f"stage2_peak ({SHIFTS_4}, {n1}, {n2})", km, kb, pm, pb,
+                      77, 54321)
+    abs4 = qf2_abs_err(km, pm, cut4, rx4, offs4, N_4)
+    s2_ms = median_ms(lambda: stage2_peak(f1, tw4, w24), reps=3)
+    s2_plain_ms = median_ms(lambda: stage2_peak_plain(f1, tw4, w24), reps=3)
+    del f1
+    km, kb = peak_sweep(rx4, cc4, offs4)
+    pm, pb = caf3_peak_plain(rx4, cc4, offs4)
+    errs = hold_peaks(f"peak sweep n={N_4}", km, kb, pm, pb, 77, 54321)
+    sweep_ms = median_ms(lambda: peak_sweep(rx4, cc4, offs4), reps=3)
+    sweep_plain_ms = median_ms(lambda: caf3_peak_plain(rx4, cc4, offs4),
+                               reps=3)
+    print(f"stage2_peak ({SHIFTS_4}, {n1}, {n2}): kernel {s2_ms:.4f} ms, plain "
+          f"{s2_plain_ms:.4f} ms, rel err {err4:.3e}; shift-list sweep n={N_4} "
+          f"x {SHIFTS_4}: stage 1 + kernel {sweep_ms:.4f} ms, torch.fft "
+          f"{sweep_plain_ms:.4f} ms, rel err {errs:.3e} {tag}")
 
     # 3) the main path, through the public entry points ------------------------
     rcv = WidebandReceiver(num_channels=NCH, num_taps=TAPS, template_len=N_RX,
@@ -190,8 +288,8 @@ def main() -> int:
                            device=dev)
     tri, xri = wideband_scene(rcv, ROWS * NCH, seed=7)
     big = caf[N_BIG]
-    wola_fused.launches = 0
-    caf_peak.launches = 0
+    for kernel in (wola_fused, caf_peak, caf3_peak, stage2_peak):
+        kernel.launches = 0
     timer = Timer().start()
     out = rcv.run(tri, xri)
     rcv_ms = timer.evt("receiver run")
@@ -199,15 +297,35 @@ def main() -> int:
                            shifts=torch.arange(SHIFTS_BIG, device=dev))
     i_big = int(torch.argmax(qf2))
     xcorr_ms = timer.evt("fast_xcorr 1M x 128")
+    q3, b3 = fast_xcorr(cut3, rx3, True, shifts=offs3)
+    i3 = int(torch.argmax(q3))
+    caf3_path_ms = timer.evt("fast_xcorr 10M x 128")
+    q4, b4 = fast_xcorr(cut4, rx4, True, shifts=offs4)
+    i4 = int(torch.argmax(q4))
+    peak_path_ms = timer.evt("fast_xcorr 1M shift list")
     launches = {"wola_fused": wola_fused.launches,
-                "caf_peak": caf_peak.launches}
+                "caf_peak": caf_peak.launches,
+                "caf3_peak": caf3_peak.launches,
+                "stage2_peak": stage2_peak.launches}
     print(f"main path: receiver run {rcv_ms:.2f} ms, fast_xcorr "
-          f"{xcorr_ms:.2f} ms (first calls), launches {launches} {tag}")
+          f"{xcorr_ms:.2f} ms (1M x 128), {caf3_path_ms:.2f} ms (10M x 128), "
+          f"{peak_path_ms:.2f} ms (1M list) (first calls), launches "
+          f"{launches} {tag}")
     print("receiver:", json.dumps({k: v for k, v in out.items()
                                    if k not in ("channel_energy_db",
                                                 "demod_syms")}))
-    check(launches["wola_fused"] > 0 and launches["caf_peak"] > 0,
+    check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    routes = (select_xcorr_path(N_3, torch.complex64, 1, dev)[0],
+              select_xcorr_path(N_4, torch.complex64, None, dev)[0])
+    check(routes == ("fused3-hopper", "peak-kernel-hopper"),
+          f"big-window / shift-list routes {routes}")
+    check(i3 == 77 and int(b3[i3]) == 1234567 and q3.shape == (SHIFTS_3,)
+          and bool(torch.isfinite(q3).all()),
+          f"fast_xcorr 10M peak at shift {i3} bin {int(b3[i3])}")
+    check(i4 == 77 and int(b4[i4]) == 54321 and q4.shape == (SHIFTS_4,)
+          and bool(torch.isfinite(q4).all()),
+          f"fast_xcorr 1M shift-list peak at {i4} bin {int(b4[i4])}")
     check(out["kernel_launches"]["wola_fused"] > 0
           and out["kernel_launches"]["caf_peak"] > 0,
           f"receiver launches {out['kernel_launches']}")
@@ -234,6 +352,25 @@ def main() -> int:
     qerr = abs(out["qf2_peak"] - ref["qf2_peak"]) / ref["qf2_peak"]
     check(qerr < CAF_RTOL, f"receiver QF^2 rel err {qerr:.3e}")
 
+    # both new routes against the same call on CPU tensors, reduced size
+    for n, offs, route in (
+            (N_3_CPU, list(range(0, 24, 3)), "fused3-hopper"),
+            (N_4_CPU, [0, 5, 6, 11, 40, 77, 78, 200], "peak-kernel-hopper")):
+        step = 3 if route == "fused3-hopper" else None
+        check(select_xcorr_path(n, torch.complex64, step, dev)[0] == route,
+              f"n={n} route")
+        cut_c, rx_c = listed_sweep(rng, n, offs, 3, 999, "cpu")
+        gq, gb = fast_xcorr(cut_c.to(dev), rx_c.to(dev), True, shifts=offs)
+        cq, cb = fast_xcorr(cut_c, rx_c, True, shifts=offs)
+        qerr = float(((gq.cpu() - cq).abs() / cq).max())
+        check(qerr < CAF_RTOL and int(torch.argmax(gq)) == 3
+              and int(torch.argmax(cq)) == 3
+              and int(gb[3]) == int(cb[3]) == 999,
+              f"{route} n={n} card vs CPU: QF^2 rel err {qerr:.3e}, peaks "
+              f"{int(torch.argmax(gq))}/{int(torch.argmax(cq))}")
+        print(f"{route} n={n} on the card vs on the CPU: QF^2 rel err "
+              f"{qerr:.3e}, planted shift and bin equal")
+
     # 4) whole-step time -------------------------------------------------------
     step_ms = median_ms(lambda: rcv.step(tri, xri), reps=5)
     print(f"receiver step, {ROWS * NCH} samples: {step_ms:.4f} ms "
@@ -257,6 +394,21 @@ def main() -> int:
                             "max_abs_err": rx_caf["max_abs_err"],
                             "ms": rx_caf["ms"],
                             "plain_ms": rx_caf["plain_ms"]}},
+        {"name": "caf3_peak", "route": "cuda",
+         "source": "pydsproutines_tpu_torch/csrc/fused_caf3.cu",
+         "replaces": "pydsproutines_tpu/ops/pallas/fused_caf3.py:166",
+         "also_replaces": "pydsproutines_tpu/ops/pallas/fused_caf3.py:210",
+         "shape": f"n={N_3} x {SHIFTS_3} shifts",
+         "launches": launches["caf3_peak"], "max_abs_err": abs3,
+         "ms": caf3_ms, "plain_ms": caf3_plain_ms},
+        {"name": "stage2_peak", "route": "cuda",
+         "source": "pydsproutines_tpu_torch/csrc/fft_peak.cu",
+         "replaces": "pydsproutines_tpu/ops/pallas/fft_peak.py:48",
+         "shape": f"({SHIFTS_4}, {n1}, {n2}) stage-1 output of n={N_4}",
+         "launches": launches["stage2_peak"], "max_abs_err": abs4,
+         "ms": s2_ms, "plain_ms": s2_plain_ms,
+         "sweep": {"shape": f"n={N_4} x {SHIFTS_4} listed shifts",
+                   "ms": sweep_ms, "plain_ms": sweep_plain_ms}},
     ], "receiver_step_ms": step_ms, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

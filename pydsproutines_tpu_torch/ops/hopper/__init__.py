@@ -1,7 +1,14 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch twin:
 
 * ``wola_fused``: WOLA channelizer, N == Dec (csrc/wola_fused.cu);
-* ``fused_xcorr``: frequency-scanning CAF peak search (csrc/fused_xcorr.cu).
+* ``fused_xcorr``: two-stage frequency-scanning CAF peak search
+  (csrc/fused_xcorr.cu);
+* ``fft_peak``: last-stage DFT peak (twiddle, last stage, |.|^2, per-row
+  argmax, true-bin reduction) and the shift-list sweep built on it
+  (csrc/fft_peak.cu);
+* ``fused_caf3``: three-stage CAF peak search for big windows
+  (csrc/fused_caf3.cu).
 
-Each wrapper counts its launches in ``<wrapper>.launches``.
+The CAF kernels share ``csrc/cgemm.cuh``. Each wrapper counts its launches in
+``<wrapper>.launches``.
 """

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` source of the package is compiled by ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, at first use,
 into ``pydsproutines_tpu_torch/_build/`` (git-ignored). The library's name
-carries a hash of the sources and flags, so an edited source is rebuilt and
-a stale library is never loaded. It is bound with ``ctypes``; nothing here
+carries a hash of the sources, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source or header is rebuilt and a stale library is never
+loaded. It is bound with ``ctypes``; nothing here
 includes PyTorch's headers, which keeps a cold build to seconds.
 
 Nothing is built or loaded on import: a CPU-only process imports the package
@@ -37,11 +38,18 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "pdsp_wola_fused": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "pdsp_caf_peak": ([_P] * 10 + [_I] * 5 + [_P], _I),
+    "pdsp_stage2_peak": ([_P] * 7 + [_I] * 4 + [_P, _I, _P], _I),
+    "pdsp_window_stage1": ([_P] * 5 + [_I] * 3 + [_P], _I),
+    "pdsp_caf3_peak": ([_P] * 15 + [_I] * 4 + [_P], _I),
 }
 
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -57,7 +65,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -24,6 +24,10 @@ import torch
 
 from pydsproutines_tpu_torch.ops.fft import best_two_factor, dft_matrix, twiddle
 from pydsproutines_tpu_torch.ops.hopper import _build
+from pydsproutines_tpu_torch.utils.memory import chunk_shifts
+
+# kernel scratch per (shift, sample): the (n1, n2) complex64 stage-1 output
+SCRATCH_BYTES_PER_SAMPLE = 8
 
 
 def caf_peak_plain(rx: torch.Tensor, cutout_conj: torch.Tensor, s0: int,
@@ -57,7 +61,8 @@ def caf_peak(rx: torch.Tensor, cutout_conj: torch.Tensor, s0: int, step: int,
              num_shifts: int, batch: int = 128):
     """(max_k |DFT(rx[s:s+n] * cutout_conj)[k]|^2 as float32, its bin as
     int64) for the shifts s = s0 + i*step, i < num_shifts, processed in
-    chunks of ``batch`` shifts."""
+    chunks of at most ``batch`` shifts whose scratch fits the byte budget
+    (``utils.memory``)."""
     _check(rx, cutout_conj, s0, step, num_shifts)
     if rx.device.type == "cpu":
         return caf_peak_plain(rx, cutout_conj, s0, step, num_shifts, batch)
@@ -70,7 +75,7 @@ caf_peak.launches = 0
 
 
 @functools.lru_cache(maxsize=4)
-def _tables(n1: int, n2: int, device: torch.device):
+def split_tables(n1: int, n2: int, device: torch.device):
     """Device copies of (W1, TW, W2) for the split n = n1*n2."""
     return tuple(torch.from_numpy(t).to(device)
                  for t in (dft_matrix(n1), twiddle(n1, n2), dft_matrix(n2)))
@@ -91,8 +96,8 @@ def _caf_peak_cuda(rx, cutout_conj, s0, step, num_shifts, batch):
         raise ValueError("rx too long for 32-bit sample indexing")
     n1, n2 = split
     dev = rx.device
-    w1, tw, w2 = _tables(n1, n2, dev)
-    nb_max = max(1, min(batch, num_shifts, 65535))
+    w1, tw, w2 = split_tables(n1, n2, dev)
+    nb_max = chunk_shifts(n, min(batch, num_shifts), SCRATCH_BYTES_PER_SAMPLE)
     scratch = torch.empty((nb_max, n1, n2), dtype=torch.complex64, device=dev)
     rowmax = torch.empty((nb_max, n1), dtype=torch.float32, device=dev)
     rowarg = torch.empty((nb_max, n1), dtype=torch.int32, device=dev)

@@ -7,16 +7,27 @@ skipped where there is no CUDA device). Run on a GPU machine with
 tests need only the port.)
 
 Tolerances are chip_smoke.py's: WOLA max|d|/max|ref| < 1e-5; CAF per-shift
-peak |X|^2 rtol 1e-4 with the planted shift and bin exact.
+peak |X|^2 rtol 1e-4 with the planted shift and bin exact (at a noise-only
+shift the top two bins can lie within f32 rounding, so only the planted
+shift's bin is held exact). The plain twins' matrix products run in full f32
+(TF32 off).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from pydsproutines_tpu_torch.ops.fft import best_two_factor, peak_consts
+from pydsproutines_tpu_torch.ops.hopper.fft_peak import (
+    leading_stages_plain, peak_sweep, stage2_peak, stage2_peak_plain,
+    window_stage1, window_stage1_plain)
+from pydsproutines_tpu_torch.ops.hopper.fused_caf3 import (caf3_peak,
+                                                           caf3_peak_plain)
 from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (caf_peak,
-                                                            caf_peak_plain)
+                                                            caf_peak_plain,
+                                                            split_tables)
 from pydsproutines_tpu_torch.ops.hopper.wola_fused import wola_fused, wola_plain
+from pydsproutines_tpu_torch.ops.xcorr import fast_xcorr
 
 pytestmark = pytest.mark.gpu
 
@@ -25,6 +36,7 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -67,3 +79,114 @@ def test_caf_kernel_matches_twin(cuda, n, step, nshifts, batch):
     assert float(((km - pm).abs() / pm).max()) < 1e-4
     assert int(torch.argmax(km)) == int(torch.argmax(pm)) == 3
     assert int(kb[3]) == int(pb[3]) == f_star
+
+
+def _planted(rng, n, rxlen, s_star, f_star):
+    cut = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    rx = 0.5 * (rng.standard_normal(rxlen) + 1j * rng.standard_normal(rxlen))
+    rx[s_star: s_star + n] += cut * np.exp(2j * np.pi * f_star
+                                           * np.arange(n) / n)
+    return (torch.from_numpy(np.conj(cut).astype(np.complex64)),
+            torch.from_numpy(rx.astype(np.complex64)))
+
+
+def _hold(km, kb, pm, pb, i_star, f_star):
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(km).all())
+    assert float(((km - pm).abs() / pm).max()) < 1e-4
+    assert int(torch.argmax(km)) == int(torch.argmax(pm)) == i_star
+    assert int(kb[i_star]) == int(pb[i_star]) == f_star
+
+
+@pytest.mark.parametrize("n,offsets,rx_tail", [
+    (2**21, list(range(0, 12)), 5),                  # 128 x 128 x 128
+    (5**9, list(range(0, 27, 3)), 2),                # 125^3, odd step
+    (5**10, list(range(1000, 1004)), 0),             # shifts[0] > 0, rx ends
+    (2**21, [0, 3, 4, 9, 40, 41], 0),                # at the last window;
+])                                                   # a shift list
+def test_caf3_kernel_matches_twin(cuda, n, offsets, rx_tail):
+    rng = np.random.default_rng(n % 1000 + len(offsets))
+    i_star, f_star = len(offsets) // 2, n // 7
+    rxlen = offsets[-1] + n + rx_tail
+    cc, rx = _planted(rng, n, rxlen, offsets[i_star], f_star)
+    cc, rx = cc.to(cuda), rx.to(cuda)
+    offs = torch.tensor(offsets, device=cuda)
+    before = caf3_peak.launches
+    km, kb = caf3_peak(rx, cc, offs, 128)
+    pm, pb = caf3_peak_plain(rx, cc, offs, 128)
+    assert caf3_peak.launches > before
+    _hold(km, kb, pm, pb, i_star, f_star)
+
+
+@pytest.mark.parametrize("factors", [(100, 128), (64, 64), (1000, 1000),
+                                     (32, 16, 16), (8, 8, 8, 8)])
+def test_stage2_peak_kernel_matches_twin(cuda, factors):
+    n = int(np.prod(factors))
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal((4, n))
+         + 1j * rng.standard_normal((4, n))).astype(np.complex64)
+    bins = [5, n // 2 + 3, n - 17, n // 3]
+    for r, k in enumerate(bins):
+        x[r] += 40.0 * np.exp(2j * np.pi * k * np.arange(n) / n)
+    f1 = leading_stages_plain(torch.from_numpy(x).to(cuda), list(factors))
+    tw, w2 = (torch.from_numpy(t).to(cuda) for t in peak_consts(factors))
+    before = stage2_peak.launches
+    km, kb = stage2_peak(f1, tw, w2, factors)
+    pm, pb = stage2_peak_plain(f1, tw, w2, factors)
+    torch.cuda.synchronize()
+    assert stage2_peak.launches == before + 1
+    assert float(((km - pm).abs() / pm).max()) < 1e-4
+    assert kb.tolist() == pb.tolist() == bins
+
+
+def test_stage2_peak_ties_go_to_the_lowest_bin(cuda):
+    """Equal magnitudes at true bins 3 + 4*1 = 7 and 1 + 4*2 = 9 (K1 = 4):
+    both versions return bin 7, though bin 9's row comes first."""
+    k1, j = 4, 8
+    f1 = torch.zeros((1, k1, j), dtype=torch.complex64)
+    f1[0, 1, 2] = 1.0
+    f1[0, 3, 1] = 1.0j
+    tw = torch.ones((k1, j), dtype=torch.complex64)
+    w2 = torch.eye(j, dtype=torch.complex64)
+    got = stage2_peak(f1.to(cuda), tw.to(cuda), w2.to(cuda))
+    ref = stage2_peak_plain(f1, tw, w2)
+    assert int(got[1][0]) == int(ref[1][0]) == 7
+
+
+@pytest.mark.parametrize("n", [4096, 1_000_000])
+def test_peak_sweep_matches_twin(cuda, n):
+    rng = np.random.default_rng(n + 1)
+    offsets = np.sort(rng.choice(3 * 16, 16, replace=False))
+    cc, rx = _planted(rng, n, int(offsets[-1]) + n, int(offsets[9]), n // 5)
+    cc, rx = cc.to(cuda), rx.to(cuda)
+    offs = torch.from_numpy(offsets).to(cuda)
+    n1, n2 = best_two_factor(n)
+    w1 = split_tables(n1, n2, cuda)[0]
+    s1 = window_stage1(rx, cc, w1, offs, n1, n2)
+    s1p = window_stage1_plain(rx, cc, w1, offs, n1, n2)
+    torch.cuda.synchronize()
+    assert float((s1 - s1p).abs().max() / s1p.abs().max()) < 1e-5
+    before = stage2_peak.launches
+    km, kb = peak_sweep(rx, cc, offs, 128)
+    pm, pb = caf3_peak_plain(rx, cc, offs, 128)
+    assert stage2_peak.launches > before
+    _hold(km, kb, pm, pb, 9, n // 5)
+
+
+@pytest.mark.parametrize("n,shifts,route", [
+    (2**21, list(range(8)), "fused3-hopper"),
+    (4096, [0, 2, 3, 7, 30, 31], "peak-kernel-hopper"),
+])
+def test_fast_xcorr_routes_launch_and_match_cpu(cuda, n, shifts, route):
+    rng = np.random.default_rng(n + len(shifts))
+    cc, rx = _planted(rng, n, shifts[-1] + n, shifts[3], 77)
+    cut = cc.conj().resolve_conj()
+    counter = caf3_peak if route == "fused3-hopper" else stage2_peak
+    before = counter.launches
+    gq, gb = fast_xcorr(cut.to(cuda), rx.to(cuda), True, shifts=shifts)
+    torch.cuda.synchronize()
+    assert counter.launches > before
+    cq, cb = fast_xcorr(cut, rx, True, shifts=shifts)
+    np.testing.assert_allclose(gq.cpu().numpy(), cq.numpy(), rtol=1e-4)
+    assert int(torch.argmax(gq)) == int(torch.argmax(cq)) == 3
+    assert int(gb[3]) == int(cb[3]) == 77

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 import pydsproutines_tpu_torch
-from pydsproutines_tpu_torch.ops.hopper import _build, fused_xcorr, wola_fused
+from pydsproutines_tpu_torch.ops.hopper import (_build, fft_peak, fused_caf3,
+                                                fused_xcorr, wola_fused)
 from pydsproutines_tpu_torch.ops.wola import select_wola_path
 from pydsproutines_tpu_torch.ops.xcorr import select_xcorr_path
 
@@ -40,13 +41,33 @@ def test_no_source_file_imports_jax():
     (1_000_000, 1, "fused-hopper"),
     (4096, 3, "fused-hopper"),
     (4099, 1, "plain"),                  # prime: no two-factor split
-    (1024, None, "plain"),               # non-uniform shifts
+    (4099, None, "plain"),
+    (1024, None, "peak-kernel-hopper"),  # non-uniform shifts
+    (1_000_000, None, "peak-kernel-hopper"),
+    (10_000_000, 1, "fused3-hopper"),    # 200 x 200 x 250
+    (10_000_000, None, "fused3-hopper"),
+    (5**10, 1, "fused3-hopper"),         # "planes" in the JAX package
+    (2**21 - 1, 1, "fused-hopper"),      # below the three-stage gate
 ])
 def test_xcorr_router_on_cuda(n, step, path):
     got, reason = select_xcorr_path(n, torch.complex64, step, "cuda")
     assert got == path, reason
     if path == "fused-hopper" and n < 4096:
         assert "gate does not apply" in reason
+    if path == "fused3-hopper":
+        assert "lane rule" in reason and "x" in reason
+    if path == "plain":
+        assert "no two-factor split" in reason
+
+
+def test_xcorr_router_modes():
+    assert select_xcorr_path(4096, torch.complex64, 1, "cuda",
+                             freqsearch=False)[0] == "dot"
+    assert select_xcorr_path(4096, torch.complex64, 1, "cuda",
+                             output_caf=True)[0] == "caf"
+    path, reason = select_xcorr_path(10_000_000, torch.complex64, 1, "cuda",
+                                     abs_result=False)
+    assert path == "plain" and "complex peaks" in reason
 
 
 def test_routers_on_cpu_and_other_dtypes():
@@ -62,30 +83,67 @@ def test_kernel_launch_without_cuda_raises():
         pytest.skip("CUDA present: this checks the CPU-only behaviour")
     x = torch.zeros(64 * 8, dtype=torch.complex64)
     h = torch.ones(128)
-    before = (wola_fused.wola_fused.launches, fused_xcorr.caf_peak.launches)
+    counters = (wola_fused.wola_fused, fused_xcorr.caf_peak,
+                fused_caf3.caf3_peak, fft_peak.stage2_peak)
+    before = [c.launches for c in counters]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         wola_fused._wola_fused_cuda(h, x, 64)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fused_xcorr._caf_peak_cuda(x, x[:64].clone(), 0, 1, 4, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fused_caf3._caf3_peak_cuda(torch.zeros(2**21 + 4, dtype=x.dtype),
+                                   torch.zeros(2**21, dtype=x.dtype),
+                                   torch.arange(4), 4)
+    f1 = torch.zeros((2, 4, 8), dtype=x.dtype)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fft_peak._stage2_peak_cuda(f1, f1[0], f1[0, 0:8], (4, 8))
     with pytest.raises(RuntimeError):
         _build.library()
-    assert (wola_fused.wola_fused.launches,
-            fused_xcorr.caf_peak.launches) == before
+    assert [c.launches for c in counters] == before
 
 
 def test_wrappers_refuse_other_devices():
     x = torch.zeros(64 * 8, dtype=torch.complex64, device="meta")
     h = torch.ones(128, device="meta")
+    offs = torch.arange(4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         wola_fused.wola_fused(h, x, 64)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_xcorr.caf_peak(x, x[:64], 0, 1, 4, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_caf3.caf3_peak(x, x[:64], offs)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fft_peak.peak_sweep(x, x[:64], offs)
+    f1 = torch.zeros((2, 4, 8), dtype=torch.complex64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fft_peak.stage2_peak(f1, f1[0], torch.zeros((8, 8), device="meta",
+                                                    dtype=torch.complex64))
 
 
 def test_build_sources_are_the_package_csrc():
     names = [p.name for p in _build.sources()]
-    assert names == ["fused_xcorr.cu", "wola_fused.cu"]
-    for src in _build.sources():
-        text = src.read_text()
-        assert "torch/extension.h" not in text
-        assert "cufft" not in text.lower() and "cublas" not in text.lower()
+    assert names == ["fft_peak.cu", "fused_caf3.cu", "fused_xcorr.cu",
+                     "wola_fused.cu"]
+    assert [p.name for p in _build.headers()] == ["cgemm.cuh"]
+    text = "".join(p.read_text() for p in _build.sources() + _build.headers())
+    assert "torch/extension.h" not in text
+    assert "cufft" not in text.lower() and "cublas" not in text.lower()
+    for name in _build._SIGNATURES:      # every bound entry point exists
+        assert f'extern "C" int {name}(' in text
+
+
+def test_build_digest_covers_the_headers(tmp_path, monkeypatch):
+    """An edited shared header must give a new library name, or a stale
+    library would be loaded."""
+    for src in _build.sources() + _build.headers():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._digest()
+    header = tmp_path / "cgemm.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build._digest() != before
+
+
+def test_package_data_ships_the_headers():
+    text = (PKG.parent / "pyproject.toml").read_text()
+    assert '"csrc/*.cu", "csrc/*.cuh"' in text

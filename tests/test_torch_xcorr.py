@@ -18,6 +18,7 @@ import torch
 from pydsproutines_tpu.ops import xcorr as jx
 from pydsproutines_tpu_torch.ops import xcorr as tx
 from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import caf_peak
+from pydsproutines_tpu_torch.utils.memory import WORK_BUDGET_BYTES, chunk_shifts
 
 QF2_RTOL = 1e-4
 
@@ -138,5 +139,117 @@ def test_fast_xcorr_rejects_bad_input():
         tx.fast_xcorr(torch.ones(200, dtype=torch.complex64), rx)
     with pytest.raises(ValueError):
         tx.fast_xcorr(cut, rx, shifts=[0, 40])
-    with pytest.raises(NotImplementedError):
-        tx.fast_xcorr(cut, rx, freqsearch=False)
+    # freqsearch=False is the "dot" mode, as in the JAX package
+    ref = np.asarray(jx.fast_xcorr(jnp.asarray(cut.numpy()),
+                                   jnp.asarray(rx.numpy()), freqsearch=False))
+    np.testing.assert_allclose(tx.fast_xcorr(cut, rx, freqsearch=False)
+                               .numpy(), ref, rtol=QF2_RTOL)
+
+
+def test_fast_xcorr_signature_matches_jax():
+    import inspect
+    ours = inspect.signature(tx.fast_xcorr).parameters
+    theirs = inspect.signature(jx.fast_xcorr).parameters
+    assert list(ours) == list(theirs)
+    assert [p.default for p in ours.values()] == \
+        [p.default for p in theirs.values()]
+
+
+def test_fast_xcorr_shift_list_matches_jax(rng):
+    """A non-uniform shift list (the "peak-kernel-hopper" route on a card)
+    against the JAX XLA route at n = 4096."""
+    n = 4096
+    shifts = np.array([0, 2, 3, 7, 11, 30, 31, 64, 65, 90])
+    cut, rx = _scene(rng, n, n + 100, 30, f_bin=1234)
+    jq, jb = jx._fast_xcorr_impl(
+        jnp.asarray(cut), jnp.asarray(rx), jnp.asarray(shifts), n=n,
+        freqsearch=True, output_caf=False, abs_result=True, batch_size=4,
+        step=None, interpret=False)
+    jq, jb = np.asarray(jq), np.asarray(jb)
+    tq, tb = tx.fast_xcorr(torch.from_numpy(cut), torch.from_numpy(rx), True,
+                           shifts=shifts, batch_size=4)
+    assert int(np.argmax(tq.numpy())) == int(np.argmax(jq)) == 5
+    assert int(tb[5]) == int(jb[5]) == 1234
+    np.testing.assert_allclose(tq.numpy(), jq, rtol=QF2_RTOL)
+
+
+# (freqsearch, output_caf, abs_result): the modes the JAX package runs with
+# no Pallas kernel. Complex results are normalized to |.| <= 1; they and
+# the CAF's near-zero bins are held with atol 1e-6 besides rtol 1e-4.
+@pytest.mark.parametrize("freqsearch,output_caf,abs_result", [
+    (False, False, True), (False, False, False),
+    (True, True, True), (True, True, False), (True, False, False),
+])
+def test_fast_xcorr_modes_match_jax(rng, freqsearch, output_caf, abs_result):
+    n = 4096
+    # rx reaches 64 samples past the last window: the JAX chunked route pads
+    # its last chunk with the continued progression and slices one covering
+    # window, which would clamp at the end of a shorter capture
+    cut, rx = _scene(rng, n, n + 40 + 64, 9, f_bin=77)
+    shifts = np.arange(0, 40, 3)
+    ref = jx.fast_xcorr(jnp.asarray(cut), jnp.asarray(rx), freqsearch,
+                        output_caf, jnp.asarray(shifts), abs_result,
+                        batch_size=4)
+    got = tx.fast_xcorr(torch.from_numpy(cut), torch.from_numpy(rx),
+                        freqsearch, output_caf, shifts, abs_result,
+                        batch_size=4)
+    if freqsearch and not output_caf:          # (complex peak, bin)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+        assert int(got[1][3]) == 77
+        got, ref = got[0], ref[0]
+    got, ref = got.numpy(), np.asarray(ref)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    np.testing.assert_allclose(got, ref, rtol=QF2_RTOL, atol=1e-6)
+    if freqsearch:                             # the tone-shifted plant
+        peak = np.abs(got).reshape(len(shifts), -1).max(-1)
+        assert int(np.argmax(peak)) == 3
+
+
+def test_chunk_shifts_at_10M():
+    """The byte budget (1 GiB) at the 10M sweep: kernel #3's two complex64
+    scratch buffers, kernel #2's one, the plain route's 32 B per sample."""
+    n = 10_000_000
+    assert chunk_shifts(n, 128, 16) == 6           # 960 MB of scratch
+    assert chunk_shifts(n, 128, 8) == 13
+    assert chunk_shifts(n, 128, tx.PLAIN_BYTES_PER_SAMPLE) == 3
+    assert chunk_shifts(n, 2, 8) == 2              # batch still caps it
+    assert chunk_shifts(2**31, 128, 32) == 1       # never below one shift
+    assert chunk_shifts(1_000_000, 128, 8) == 128  # the 1M sweep: one chunk
+    for bps in (8, 16, 32):
+        m = chunk_shifts(n, 128, bps)
+        assert m * n * bps <= WORK_BUDGET_BYTES < (m + 1) * n * bps
+    with pytest.raises(ValueError):
+        chunk_shifts(0, 128, 8)
+
+
+def test_chunking_leaves_results_unchanged(rng, monkeypatch):
+    """One shift per chunk gives the same answers as the default chunks."""
+    n = 4096
+    cut, rx = _scene(rng, n, n + 64, 5, f_bin=37)
+    args = (torch.from_numpy(cut), torch.from_numpy(rx), True)
+    ref = tx.fast_xcorr(*args, shifts=np.arange(0, 60, 2))
+    monkeypatch.setattr(tx, "chunk_shifts", lambda n, batch, bps: 1)
+    got = tx.fast_xcorr(*args, shifts=np.arange(0, 60, 2))
+    np.testing.assert_array_equal(got[1].numpy(), ref[1].numpy())
+    np.testing.assert_allclose(got[0].numpy(), ref[0].numpy(), rtol=1e-6)
+
+
+def test_fast_xcorr_exact_when_the_last_chunk_is_short(rng):
+    """14 shifts of step 3 in chunks of 4, rx ending 3 samples after the
+    last window: the JAX chunked route pads the last chunk to 4 shifts and
+    its covering slice clamps, shifting that chunk's windows (bins of shifts
+    36 and 39 wrong against numpy). The port reads each window where it is."""
+    n = 4096
+    cut, rx = _scene(rng, n, n + 40, 39, f_bin=99)
+    shifts = np.arange(0, 40, 3)
+    q, b = tx.fast_xcorr(torch.from_numpy(cut), torch.from_numpy(rx), True,
+                         shifts=shifts, batch_size=4)
+    cc = np.conj(cut).astype(np.complex128)
+    spec = np.abs(np.fft.fft(np.stack([rx[s: s + n] for s in shifts]) * cc)
+                  ) ** 2
+    rxn = np.array([np.sum(np.abs(rx[s: s + n].astype(np.complex128)) ** 2)
+                    for s in shifts])
+    np.testing.assert_array_equal(b.numpy(), spec.argmax(-1))
+    np.testing.assert_allclose(q.numpy(), spec.max(-1) / np.sum(
+        np.abs(cc) ** 2) / rxn, rtol=QF2_RTOL)
+    assert int(np.argmax(q.numpy())) == 13 and int(b[13]) == 99
