@@ -13,19 +13,30 @@
    shifts[0] > 0 in an rx that ends exactly at the last window; the
    last-stage peak kernel on the (128, 1000, 1000) stage-1 output of a 1M
    sweep over a sorted non-uniform list of 128 shifts, and that sweep's
-   route against torch.fft.
+   route against torch.fft; upfirdn through ``fir_upfirdn_planes_flat`` at
+   the JAX bench's chain (4,194,304 complex samples, 128 FIR and 95
+   resampler taps, up 5, down 4: 730 combined taps), and the median filter
+   at 4,194,304 float32 samples with k = 129 (bit-equal), each also against
+   scipy at a reduced size.
 3. Drives the main path through the public entry points, with every kernel's
    launch count set to 0 first: ``WidebandReceiver(64 ch, 2048 taps,
    template 1024, 256 shifts).run`` on an 8,388,608-sample wideband scene
    (a QPSK template on channel 1), then ``fast_xcorr(freqsearch=True)`` at
    1M x 128, at 10M x 128 ("fused3-hopper") and at 1M over the shift list
-   ("peak-kernel-hopper"), each with a planted peak. Checks the routes, the
-   launch counts, the planted channel, shift and bin, the receiver's answer
-   against the same receiver run on the CPU (plain twins), and both new
-   routes against the same fast_xcorr call on CPU tensors at a reduced size.
-4. Times each kernel, its twin and the whole receiver step on CUDA events
-   (one warm-up, median of >= 3), each line tagged with the card's name and
-   power limit.
+   ("peak-kernel-hopper"), each with a planted peak; the resampling chain
+   ``fir_upfirdn_planes_flat`` at the bench geometry; and the burst-detection
+   front end on an 8,388,608-sample scene with three bursts of the template
+   on channel 1: ``Channeliser.channelise`` -> strongest channel ->
+   ``BurstDetector(129).medfilt`` -> ``auto_detect_threshold`` ->
+   ``detect_via_threshold`` -> ``fast_xcorr`` on each detected slice.
+   Checks the routes, the launch counts, the planted channel, edges, shifts
+   and bins, the receiver's answer and the detection chain's against the
+   same calls on the CPU (plain twins), and both big-window routes against
+   the same fast_xcorr call on CPU tensors at a reduced size.
+4. Times each kernel, its twin, the whole receiver step, the whole
+   detection chain and the resampling chain's public entry point on CUDA
+   events (one warm-up, median of >= 3), each line tagged with the card's
+   name and power limit.
 
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -40,6 +51,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 # Tolerances, with their reasons:
 # - WOLA kernel vs twin: both f32; the twin's IDFT is torch.fft, the
 #   kernel's a direct f32 sum, so they differ by summation order only:
@@ -50,6 +63,12 @@ WOLA_RTOL = 1e-5
 #   < 1e-4 (the QF^2 tolerance of the CPU parity tests). Peak shift and bin
 #   must be equal.
 CAF_RTOL = 1e-4
+# - upfirdn kernel vs twin: f32 FMA chains of 146 taps per phase against a
+#   full-f32 matrix product; max|d| / max|ref| < 1e-5 (the WOLA bound). At
+#   a reduced size against float64 scipy: tests/test_filters.py:181's
+#   atol 2e-4*sqrt(T), rtol 1e-4.
+UPFIRDN_RTOL = 1e-5
+# - medfilt kernel vs twin and scipy: bit-equal (an exact order statistic).
 
 NCH, TAPS, ROWS = 64, 2048, 131072
 N_BIG, SHIFTS_BIG = 1_000_000, 128
@@ -58,6 +77,14 @@ N_3, SHIFTS_3 = 10_000_000, 128          # the three-stage kernel's sweep
 EDGE_S0, EDGE_STEP, EDGE_SHIFTS = 1000, 3, 8   # shifts[0] > 0, rx ends there
 N_4, SHIFTS_4, SPAN_4 = 1_000_000, 128, 1024   # 128 sorted shifts of 1024
 N_3_CPU, N_4_CPU = 2**21, 65536          # CPU comparison of the two routes
+N_FIR, FIR_TAPS, RS_TAPS, UP, DOWN = 4_194_304, 128, 95, 5, 4   # bench.py:204
+N_MED, MED_K = 4_194_304, 129            # ops/pallas/medfilt.py:5
+N_SMALL = 65536                          # reduced-size checks against scipy
+BURSTS = (20000, 60000, 100000)          # channel-rate burst positions
+EDGE_MARGIN = 16                         # detected edge vs planted burst
+SEARCH = 64                              # xcorr shifts either side of an edge
+# noise-level grid of auto_detect_threshold: 1 dB steps, -30 .. 0 dB
+NOISE_LEVELS_DB = np.arange(-30, 1)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -72,7 +99,6 @@ def rel_err(a, b) -> float:
 def planted_sweep(rng, n, num_shifts, s_star, f_star, device):
     """cutout, rx with cutout * exp(2*pi*i*f_star*t/n) planted at shift
     s_star in noise: the peak is at (s_star, bin f_star)."""
-    import numpy as np
     import torch
     cut = (rng.standard_normal(n) + 1j * rng.standard_normal(n))
     rxlen = n + num_shifts - 1
@@ -86,7 +112,6 @@ def planted_sweep(rng, n, num_shifts, s_star, f_star, device):
 def listed_sweep(rng, n, offsets, i_star, f_star, device):
     """cutout, rx for a sweep over ``offsets`` with rx ending exactly at the
     last window, the planted peak at (offsets[i_star], f_star)."""
-    import numpy as np
     import torch
     cut = (rng.standard_normal(n) + 1j * rng.standard_normal(n))
     rxlen = int(offsets[-1]) + n
@@ -131,7 +156,6 @@ def wideband_scene(rcv, n_wide: int, seed: int):
     samples), on the channel-1 tone, in noise. Unlike the impulse-train
     example of ``example_inputs``, its energy sits in channel 1, so the
     strongest channel is the planted one."""
-    import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     dec = rcv.dec
@@ -147,16 +171,72 @@ def wideband_scene(rcv, n_wide: int, seed: int):
     return torch.from_numpy(tri).to(dev), torch.from_numpy(xri).to(dev)
 
 
+def burst_scene(n_wide: int, template_len: int, seed: int, device):
+    """(template, rx) complex64 on ``device``: three bursts of one QPSK
+    template, each symbol held for Dec = 64 samples on the channel-1 tone,
+    in noise, built as ``wideband_scene`` builds its one burst. Burst b
+    starts at wideband sample 64*(BURSTS[b] - 17) + 32, so that after the
+    2048-tap channelizer's 1023.5-sample delay channel 1 samples each symbol
+    at its centre from channel-rate sample BURSTS[b] on."""
+    import torch
+    rng = np.random.default_rng(seed)
+    syms = np.exp(1j * (np.pi / 2) * rng.integers(0, 4, template_len))
+    rx = 0.1 * (rng.standard_normal(n_wide) + 1j * rng.standard_normal(n_wide))
+    for p in BURSTS:
+        start = 64 * (p - 17) + 32
+        t = np.arange(start, start + template_len * 64)
+        rx[start: t[-1] + 1] += np.repeat(syms, 64) * np.exp(2j * np.pi * t / 64)
+    return (torch.from_numpy(syms.astype(np.complex64)).to(device),
+            torch.from_numpy(rx.astype(np.complex64)).to(device))
+
+
+def detection_chain(chan, template, rx):
+    """The burst-detection front end through the public entry points:
+    channelise, strongest channel, median-filtered power, histogram
+    threshold, edges, then fast_xcorr of the template over each detected
+    slice. Returns the channel, threshold, edges and per-edge (shift, bin,
+    QF^2) of the peak."""
+    import torch
+    from pydsproutines_tpu_torch.ops.detection import BurstDetector
+    from pydsproutines_tpu_torch.ops.xcorr import fast_xcorr
+    chan.reset()
+    ch = chan.channelise(rx)
+    energy = torch.mean(ch.real ** 2 + ch.imag ** 2, dim=0)
+    best = int(torch.argmax(energy))
+    x = ch[:, best].contiguous()
+    bd = BurstDetector(MED_K)
+    bd.medfilt(x)
+    thr = bd.auto_detect_threshold(10.0 ** (NOISE_LEVELS_DB / 10))
+    check(thr is not None, "auto_detect_threshold found no threshold")
+    edges = bd.detect_via_threshold(thr, capacity=16, min_length=512)
+    count = int(edges.count)
+    spans = list(zip(edges.starts[:count].tolist(),
+                     edges.ends[:count].tolist()))
+    n = template.shape[-1]
+    peaks = []
+    for start, _ in spans:
+        s0 = min(max(0, start - SEARCH), x.shape[0] - n)
+        qf2, bins = fast_xcorr(template, x[s0: s0 + n + 2 * SEARCH], True)
+        k = int(torch.argmax(qf2))
+        peaks.append((s0 + k, int(bins[k]), float(qf2[k])))
+    return {"channel": best, "threshold": thr, "edges": spans,
+            "peaks": peaks}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to measure",
               file=sys.stderr)
         return 1
-    import numpy as np
     from scipy import signal as sps
 
     from pydsproutines_tpu_torch.models import WidebandReceiver
+    from pydsproutines_tpu_torch.ops.detection import energy_detection
+    from pydsproutines_tpu_torch.ops.filters import (fir_upfirdn_planes_flat,
+                                                     get_upfirdn_size, medfilt,
+                                                     select_medfilt_path,
+                                                     select_upfirdn_path)
     from pydsproutines_tpu_torch.ops.fft import best_two_factor
     from pydsproutines_tpu_torch.ops.hopper import _build
     from pydsproutines_tpu_torch.ops.hopper.fft_peak import (
@@ -165,8 +245,13 @@ def main() -> int:
         caf3_peak, caf3_peak_plain)
     from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (
         caf_peak, caf_peak_plain, split_tables)
+    from pydsproutines_tpu_torch.ops.hopper.medfilt import (medfilt_kernel,
+                                                            medfilt_plain)
+    from pydsproutines_tpu_torch.ops.hopper.upfirdn import (
+        upfirdn_planes, upfirdn_planes_plain)
     from pydsproutines_tpu_torch.ops.hopper.wola_fused import (wola_fused,
                                                                wola_plain)
+    from pydsproutines_tpu_torch.ops.wola import Channeliser, select_wola_path
     from pydsproutines_tpu_torch.ops.xcorr import fast_xcorr, select_xcorr_path
     from pydsproutines_tpu_torch.utils.timing import Timer, median_ms
 
@@ -282,13 +367,78 @@ def main() -> int:
           f"x {SHIFTS_4}: stage 1 + kernel {sweep_ms:.4f} ms, torch.fft "
           f"{sweep_plain_ms:.4f} ms, rel err {errs:.3e} {tag}")
 
+    # upfirdn at the JAX bench's resampling chain, planes read where they lie
+    frng = np.random.default_rng(1)
+    x_ri = frng.standard_normal((2, N_FIR), dtype=np.float32)
+    h_fir = frng.standard_normal(FIR_TAPS).astype(np.float32)
+    h_rs = frng.standard_normal(RS_TAPS).astype(np.float32)
+    fre, fim = (torch.from_numpy(p).to(dev) for p in x_ri)
+    n_fir_out = get_upfirdn_size(N_FIR, RS_TAPS, UP, DOWN)
+    y_re, y_im = fir_upfirdn_planes_flat(h_fir, h_rs, fre, fim, UP, DOWN)
+    hu = np.zeros(FIR_TAPS * UP - (UP - 1))
+    hu[::UP] = h_fir
+    h64 = np.convolve(hu, h_rs.astype(np.float64))
+    h32 = torch.from_numpy(h64.astype(np.float32)).to(dev)
+    r_re, r_im = upfirdn_planes_plain((fre, fim), h32, UP, DOWN, n_fir_out)
+    torch.cuda.synchronize()
+    got_f, ref_f = torch.stack([y_re, y_im]), torch.stack([r_re, r_im])
+    check(got_f.shape == (2, n_fir_out) and bool(torch.isfinite(got_f).all()),
+          "upfirdn output shape or finiteness")
+    fir_err = rel_err(got_f, ref_f)
+    fir_abs = float((got_f - ref_f).abs().max())
+    check(fir_err < UPFIRDN_RTOL, f"upfirdn kernel vs twin rel err "
+                                  f"{fir_err:.3e}")
+    s_re, s_im = fir_upfirdn_planes_flat(h_fir, h_rs, fre[:N_SMALL],
+                                         fim[:N_SMALL], UP, DOWN)
+    xs = x_ri[0, :N_SMALL].astype(np.float64) + 1j * x_ri[1, :N_SMALL]
+    truth = sps.upfirdn(h64, xs, UP, DOWN)[: s_re.shape[0]]
+    np.testing.assert_allclose(
+        s_re.cpu().numpy() + 1j * s_im.cpu().numpy(), truth,
+        atol=2e-4 * np.sqrt(h64.size), rtol=1e-4,
+        err_msg="upfirdn kernel vs float64 scipy")
+    fir_ms = median_ms(lambda: upfirdn_planes((fre, fim), h32, UP, DOWN,
+                                              n_fir_out), reps=5)
+    fir_plain_ms = median_ms(lambda: upfirdn_planes_plain(
+        (fre, fim), h32, UP, DOWN, n_fir_out), reps=5)
+    # the public entry point: host tap key and combination (cached) + copy
+    # of the combined taps to the card + the kernel
+    fir_chain_ms = median_ms(lambda: fir_upfirdn_planes_flat(
+        h_fir, h_rs, fre, fim, UP, DOWN), reps=5)
+    print(f"upfirdn {N_FIR} complex, {h64.size} taps, {UP}/{DOWN}: kernel "
+          f"{fir_ms:.4f} ms, plain {fir_plain_ms:.4f} ms, rel err "
+          f"{fir_err:.3e}; vs float64 scipy at {N_SMALL} within "
+          f"2e-4*sqrt(T); resampling chain (fir_upfirdn_planes_flat) "
+          f"{fir_chain_ms:.4f} ms {tag}")
+
+    # the median filter at the JAX package's measured size
+    xm = torch.from_numpy(np.abs(rng.standard_normal(N_MED) + 1j
+                                 * rng.standard_normal(N_MED)).astype(
+        np.float32) ** 2).to(dev)
+    got_m, ref_m = medfilt(xm, MED_K), medfilt_plain(xm, MED_K)
+    torch.cuda.synchronize()
+    check(torch.equal(got_m, ref_m), "medfilt kernel vs twin not bit-equal")
+    med_abs = float((got_m - ref_m).abs().max())
+    small = xm[:N_SMALL]
+    check(np.array_equal(medfilt_kernel(small, MED_K).cpu().numpy(),
+                         sps.medfilt(small.cpu().numpy(), MED_K)),
+          "medfilt kernel vs scipy not bit-equal")
+    med_ms = median_ms(lambda: medfilt_kernel(xm, MED_K), reps=5)
+    med_plain_ms = median_ms(lambda: medfilt_plain(xm, MED_K), reps=3)
+    print(f"medfilt {N_MED} x k={MED_K}: kernel {med_ms:.4f} ms, plain "
+          f"{med_plain_ms:.4f} ms, bit-equal to the twin and (at {N_SMALL}) "
+          f"to scipy {tag}")
+
     # 3) the main path, through the public entry points ------------------------
     rcv = WidebandReceiver(num_channels=NCH, num_taps=TAPS, template_len=N_RX,
                            num_shifts=SHIFTS_RX, osr=4, demod_syms=128, m=4,
                            device=dev)
     tri, xri = wideband_scene(rcv, ROWS * NCH, seed=7)
     big = caf[N_BIG]
-    for kernel in (wola_fused, caf_peak, caf3_peak, stage2_peak):
+    chan = Channeliser(num_taps=TAPS, num_channels=NCH, device=dev)
+    tmpl_b, rx_b = burst_scene(ROWS * NCH, N_RX, seed=11, device=dev)
+    kernels = (wola_fused, caf_peak, caf3_peak, stage2_peak, upfirdn_planes,
+               medfilt_kernel)
+    for kernel in kernels:
         kernel.launches = 0
     timer = Timer().start()
     out = rcv.run(tri, xri)
@@ -303,14 +453,23 @@ def main() -> int:
     q4, b4 = fast_xcorr(cut4, rx4, True, shifts=offs4)
     i4 = int(torch.argmax(q4))
     peak_path_ms = timer.evt("fast_xcorr 1M shift list")
-    launches = {"wola_fused": wola_fused.launches,
-                "caf_peak": caf_peak.launches,
-                "caf3_peak": caf3_peak.launches,
-                "stage2_peak": stage2_peak.launches}
+    m_re, m_im = fir_upfirdn_planes_flat(h_fir, h_rs, fre, fim, UP, DOWN)
+    fir_path_ms = timer.evt("fir_upfirdn_planes_flat 4M")
+    noise, req, filtered, e_edges = energy_detection(xm, MED_K)
+    e_count = int(e_edges.count)
+    energy_ms = timer.evt("energy_detection 4M")
+    before = {k.__name__: k.launches for k in kernels}
+    det = detection_chain(chan, tmpl_b, rx_b)
+    det_path_ms = timer.evt("detection chain")
+    launches = {k.__name__: k.launches for k in kernels}
+    det_launches = {k: launches[k] - before[k] for k in launches}
     print(f"main path: receiver run {rcv_ms:.2f} ms, fast_xcorr "
           f"{xcorr_ms:.2f} ms (1M x 128), {caf3_path_ms:.2f} ms (10M x 128), "
-          f"{peak_path_ms:.2f} ms (1M list) (first calls), launches "
-          f"{launches} {tag}")
+          f"{peak_path_ms:.2f} ms (1M list), fir_upfirdn_planes_flat "
+          f"{fir_path_ms:.2f} ms, energy_detection {energy_ms:.2f} ms, "
+          f"detection chain {det_path_ms:.2f} ms "
+          f"(first calls), launches {launches} {tag}")
+    print("detection:", json.dumps({**det, "launches": det_launches}))
     print("receiver:", json.dumps({k: v for k, v in out.items()
                                    if k not in ("channel_energy_db",
                                                 "demod_syms")}))
@@ -340,6 +499,32 @@ def main() -> int:
           f"fast_xcorr 1M peak at shift {i_big} bin {int(bins[i_big])}")
     check(qf2.shape == (SHIFTS_BIG,) and bool(torch.isfinite(qf2).all()),
           "fast_xcorr QF^2 shape or finiteness")
+    check(torch.equal(m_re, y_re) and torch.equal(m_im, y_im),
+          "fir_upfirdn_planes_flat on the main path differs from phase 2")
+    check(torch.equal(filtered, got_m) and bool(torch.isfinite(noise))
+          and float(req) == 4.0 * float(noise)
+          and 0 <= e_count <= e_edges.starts.shape[0],
+          "energy_detection on the main path")
+    routes = (select_upfirdn_path(N_FIR, h64.size, UP, DOWN, torch.float32,
+                                  dev)[0],
+              select_medfilt_path(1, torch.float32, dev, MED_K)[0],
+              select_wola_path(NCH, NCH, dev)[0],
+              select_xcorr_path(N_RX, torch.complex64, 1, dev)[0])
+    check(routes == ("upfirdn-hopper", "medfilt-hopper", "fused-hopper",
+                     "fused-hopper"), f"front-end routes {routes}")
+    check(all(det_launches[k] > 0 for k in
+              ("wola_fused", "medfilt_kernel", "caf_peak")),
+          f"the detection chain skipped a kernel: {det_launches}")
+    check(det["channel"] == 1, f"detection channel {det['channel']}")
+    check(len(det["edges"]) == len(BURSTS)
+          and all(abs(s - p) <= EDGE_MARGIN
+                  and abs(e - (p + N_RX)) <= EDGE_MARGIN
+                  for (s, e), p in zip(det["edges"], BURSTS)),
+          f"detected edges {det['edges']} vs bursts at {BURSTS}")
+    check([pk[:2] for pk in det["peaks"]] == [(p, 0) for p in BURSTS]
+          and all(np.isfinite(pk[2]) and 0 < pk[2] <= 1
+                  for pk in det["peaks"]),
+          f"burst peaks {det['peaks']} vs bursts at {BURSTS}, bin 0")
 
     # the same receiver and input on the CPU: plain twins throughout
     ref = WidebandReceiver.from_numpy_params(
@@ -351,6 +536,20 @@ def main() -> int:
               f"plain twin {ref[key]}")
     qerr = abs(out["qf2_peak"] - ref["qf2_peak"]) / ref["qf2_peak"]
     check(qerr < CAF_RTOL, f"receiver QF^2 rel err {qerr:.3e}")
+
+    # the same detection chain and scene on the CPU: plain twins throughout
+    det_cpu = detection_chain(
+        Channeliser(num_channels=NCH, f_tap=chan.f_tap.cpu()),
+        tmpl_b.cpu(), rx_b.cpu())
+    for key in ("channel", "threshold", "edges"):
+        check(det[key] == det_cpu[key], f"detection {key}: card {det[key]} "
+              f"vs plain twins {det_cpu[key]}")
+    for (s1, b1, q1), (s2, b2, q2) in zip(det["peaks"], det_cpu["peaks"]):
+        check(s1 == s2 and b1 == b2 and abs(q1 - q2) / q2 < CAF_RTOL,
+              f"detection peak card {(s1, b1, q1)} vs CPU {(s2, b2, q2)}")
+    print(f"detection chain on the card vs on the CPU: channel, threshold "
+          f"{det['threshold']:.4g}, edges {det['edges']}, shifts and bins "
+          f"equal; QF^2 within {CAF_RTOL}")
 
     # both new routes against the same call on CPU tensors, reduced size
     for n, offs, route in (
@@ -375,6 +574,9 @@ def main() -> int:
     step_ms = median_ms(lambda: rcv.step(tri, xri), reps=5)
     print(f"receiver step, {ROWS * NCH} samples: {step_ms:.4f} ms "
           f"({ROWS * NCH / step_ms / 1e6:.3f} GS/s) {tag}")
+    det_ms = median_ms(lambda: detection_chain(chan, tmpl_b, rx_b), reps=5)
+    print(f"detection chain, {ROWS * NCH} samples, {len(BURSTS)} bursts: "
+          f"{det_ms:.4f} ms ({ROWS * NCH / det_ms / 1e6:.3f} GS/s) {tag}")
 
     rx_caf = caf[N_RX]
     print(json.dumps({"kernels": [
@@ -409,7 +611,21 @@ def main() -> int:
          "ms": s2_ms, "plain_ms": s2_plain_ms,
          "sweep": {"shape": f"n={N_4} x {SHIFTS_4} listed shifts",
                    "ms": sweep_ms, "plain_ms": sweep_plain_ms}},
-    ], "receiver_step_ms": step_ms, "card": card}))
+        {"name": "upfirdn_planes", "route": "cuda",
+         "source": "pydsproutines_tpu_torch/csrc/upfirdn.cu",
+         "replaces": "pydsproutines_tpu/ops/pallas/upfirdn.py:109",
+         "also_replaces": "pydsproutines_tpu/ops/pallas/upfirdn.py:209",
+         "shape": f"2 planes x {N_FIR}, {h64.size} taps, up {UP} down {DOWN}",
+         "launches": launches["upfirdn_planes"], "max_abs_err": fir_abs,
+         "ms": fir_ms, "plain_ms": fir_plain_ms},
+        {"name": "medfilt_kernel", "route": "cuda",
+         "source": "pydsproutines_tpu_torch/csrc/medfilt.cu",
+         "replaces": "pydsproutines_tpu/ops/pallas/medfilt.py:32",
+         "shape": f"{N_MED} float32, k={MED_K}",
+         "launches": launches["medfilt_kernel"], "max_abs_err": med_abs,
+         "ms": med_ms, "plain_ms": med_plain_ms},
+    ], "receiver_step_ms": step_ms, "detection_chain_ms": det_ms,
+        "resampling_chain_ms": fir_chain_ms, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

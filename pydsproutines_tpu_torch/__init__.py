@@ -1,10 +1,12 @@
 """pydsproutines_tpu_torch: the PyTorch / CUDA port of pydsproutines_tpu.
 
 The receiver's main path (WOLA channelizer -> strongest channel ->
-frequency-scanning CAF peak search -> PSK demod) in PyTorch, with the two
-TPU kernels it reaches rewritten by hand for NVIDIA Hopper (CUDA C++ in
-``csrc/``, built with nvcc at first use on a CUDA tensor). CPU tensors take
-each kernel's plain PyTorch twin. The package never imports JAX.
+frequency-scanning CAF peak search -> PSK demod), the burst-detection and
+resampling front end (FIR/upfirdn, median filter, threshold edges) and the
+big-window CAF searches in PyTorch, with the TPU kernels they reach
+rewritten by hand for NVIDIA Hopper (CUDA C++ in ``csrc/``, built with nvcc
+at first use on a CUDA tensor). CPU tensors take each kernel's plain
+PyTorch twin. The package never imports JAX.
 """
 
 from pydsproutines_tpu_torch import models, ops, utils

@@ -7,7 +7,10 @@
   argmax, true-bin reduction) and the shift-list sweep built on it
   (csrc/fft_peak.cu);
 * ``fused_caf3``: three-stage CAF peak search for big windows
-  (csrc/fused_caf3.cu).
+  (csrc/fused_caf3.cu);
+* ``upfirdn``: scipy-exact upfirdn of real-tap planes (csrc/upfirdn.cu);
+* ``medfilt``: scipy-exact median filter by radix select
+  (csrc/medfilt.cu).
 
 The CAF kernels share ``csrc/cgemm.cuh``. Each wrapper counts its launches in
 ``<wrapper>.launches``.

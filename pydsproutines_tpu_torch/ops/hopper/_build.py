@@ -1,7 +1,8 @@
 """Build and load the hand-written Hopper kernels.
 
 Every ``csrc/*.cu`` source of the package is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, at first use,
+``sm_90a`` (one nvcc per source, all at once) and linked into one shared
+library with a plain C interface, at first use,
 into ``pydsproutines_tpu_torch/_build/`` (git-ignored). The library's name
 carries a hash of the sources, the shared ``csrc/*.cuh`` headers and the
 flags, so an edited source or header is rebuilt and a stale library is never
@@ -34,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signature of every entry point: (argtypes, restype)
 _SIGNATURES = {
     "pdsp_wola_fused": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
@@ -41,6 +43,12 @@ _SIGNATURES = {
     "pdsp_stage2_peak": ([_P] * 7 + [_I] * 4 + [_P, _I, _P], _I),
     "pdsp_window_stage1": ([_P] * 5 + [_I] * 3 + [_P], _I),
     "pdsp_caf3_peak": ([_P] * 15 + [_I] * 4 + [_P], _I),
+    "pdsp_upfirdn_f32": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_P] + [_I] * 3
+                         + [_P], _I),
+    "pdsp_upfirdn_f64": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_P] + [_I] * 3
+                         + [_P], _I),
+    "pdsp_medfilt_f32": ([_P, _P, _L, _I, _P], _I),
+    "pdsp_medfilt_f64": ([_P, _P, _L, _I, _P], _I),
 }
 
 
@@ -85,19 +93,41 @@ class BuildInfo:
 build_info = BuildInfo()
 
 
+def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands at once; wait for all of them."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [subprocess.CompletedProcess(c, p.returncode, o)
+            for c, p, o in zip(cmds, procs, outs)]
+
+
 def _compile(out: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    objdir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [objdir / (src.stem + ".o") for src in sources()]
+    steps = [[_nvcc(), *flags, "-c", "-o", str(o), str(src)]
+             for src, o in zip(sources(), objs)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        results = _run_all(steps)
+        if all(r.returncode == 0 for r in results):
+            results += _run_all([[_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                                  *map(str, objs)]])
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
     build_info.seconds = time.perf_counter() - t0
-    build_info.log = res.stdout + res.stderr
-    if res.returncode != 0:
+    build_info.log = "".join(r.stdout for r in results)
+    failed = [r for r in results if r.returncode != 0]
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{build_info.log}")
+        raise RuntimeError(f"nvcc failed ({failed[0].returncode}):\n"
+                           f"{' '.join(failed[0].args)}\n{build_info.log}")
     os.replace(tmp, out)                     # atomic: concurrent builds race safely
     build_info.compiled = True
 

@@ -9,12 +9,16 @@ tests need only the port.)
 Tolerances are chip_smoke.py's: WOLA max|d|/max|ref| < 1e-5; CAF per-shift
 peak |X|^2 rtol 1e-4 with the planted shift and bin exact (at a noise-only
 shift the top two bins can lie within f32 rounding, so only the planted
-shift's bin is held exact). The plain twins' matrix products run in full f32
-(TF32 off).
+shift's bin is held exact); upfirdn max|d|/max|ref| < 1e-5 against the twin
+in float32 (f32 FMA chains of up to a few hundred taps against a full-f32
+matrix product), 1e-9 absolute in float64, and
+``tests/test_filters.py``'s scipy bound; medfilt bit-equal (``torch.equal``).
+The plain twins' matrix products run in full f32 (TF32 off).
 """
 
 import numpy as np
 import pytest
+import scipy.signal as sps
 import torch
 
 from pydsproutines_tpu_torch.ops.fft import best_two_factor, peak_consts
@@ -23,9 +27,18 @@ from pydsproutines_tpu_torch.ops.hopper.fft_peak import (
     window_stage1, window_stage1_plain)
 from pydsproutines_tpu_torch.ops.hopper.fused_caf3 import (caf3_peak,
                                                            caf3_peak_plain)
+from pydsproutines_tpu_torch.ops.detection import (BurstDetector,
+                                                   energy_detection)
+from pydsproutines_tpu_torch.ops.filters import (fir_upfirdn_planes_flat,
+                                                 lfilter_fir, medfilt, upfirdn)
 from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (caf_peak,
                                                             caf_peak_plain,
                                                             split_tables)
+from pydsproutines_tpu_torch.ops.hopper.medfilt import (medfilt_kernel,
+                                                        medfilt_plain)
+from pydsproutines_tpu_torch.ops.hopper.upfirdn import (get_upfirdn_size,
+                                                        upfirdn_planes,
+                                                        upfirdn_planes_plain)
 from pydsproutines_tpu_torch.ops.hopper.wola_fused import wola_fused, wola_plain
 from pydsproutines_tpu_torch.ops.xcorr import fast_xcorr
 
@@ -190,3 +203,179 @@ def test_fast_xcorr_routes_launch_and_match_cpu(cuda, n, shifts, route):
     np.testing.assert_allclose(gq.cpu().numpy(), cq.numpy(), rtol=1e-4)
     assert int(torch.argmax(gq)) == int(torch.argmax(cq)) == 3
     assert int(gb[3]) == int(cb[3]) == 77
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("up,down,taps", [
+    (5, 4, 95), (5, 4, 730), (3, 2, 41), (1, 4, 257), (2, 3, 16),
+])
+def test_upfirdn_kernel_matches_twin(cuda, up, down, taps):
+    """The JAX kernel test's geometries (tests/test_filters.py:165), both
+    planes of a complex64 input read in place in one launch."""
+    rng = np.random.default_rng(up * 1000 + taps)
+    cols = 128 * (up // np.gcd(up, down))
+    n = int(np.ceil(2 * 128 * cols * down / up)) + 777
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)
+         ).astype(np.complex64)
+    h = rng.standard_normal(taps).astype(np.float32)
+    xt = torch.from_numpy(x).to(cuda)
+    ht = torch.from_numpy(h).to(cuda)
+    before = upfirdn_planes.launches
+    got = upfirdn(ht, xt, up, down)
+    assert upfirdn_planes.launches == before + 1
+    ref = upfirdn_planes_plain((xt.real, xt.imag), ht, up, down)
+    torch.cuda.synchronize()
+    assert got.shape == (get_upfirdn_size(n, taps, up, down),)
+    assert _rel(torch.view_as_real(got), torch.stack(ref, -1)) < 1e-5
+    truth = sps.upfirdn(h.astype(np.float64), x.astype(np.complex128), up,
+                        down)
+    np.testing.assert_allclose(got.cpu().numpy(), truth,
+                               atol=2e-4 * np.sqrt(taps), rtol=1e-4)
+
+
+def test_upfirdn_kernel_grid_float64(cuda):
+    """The JAX polyphase grid (tests/test_filters.py:125): down > up, taps
+    shorter than up, n = 1, up == down == 1, all in float64."""
+    rng = np.random.default_rng(125)
+    for up in (1, 2, 3, 5, 8):
+        for down in (1, 2, 3, 5, 7):
+            for T in (1, 4, 15, 101):
+                for n in (1, 17, 256):
+                    x = rng.standard_normal(n)
+                    h = rng.standard_normal(T)
+                    got = upfirdn(torch.from_numpy(h).to(cuda),
+                                  torch.from_numpy(x).to(cuda), up, down)
+                    ref = sps.upfirdn(h, x, up, down)
+                    assert got.shape == ref.shape, (up, down, T, n)
+                    np.testing.assert_allclose(got.cpu().numpy(), ref,
+                                               atol=1e-9,
+                                               err_msg=str((up, down, T, n)))
+
+
+@pytest.mark.parametrize("rows,n,up,down,taps,dtype", [
+    (3, 1000, 2, 3, 16, torch.float32),
+    (70_000, 5, 5, 4, 7, torch.float32),        # more rows than grid y
+    (4, 4096, 5, 4, 730, torch.float64),
+    (2, 1000, 1, 1, 30_000, torch.float32),     # taps past shared memory
+    (2, 50_000, 1, 20_000, 9, torch.float32),   # span past shared memory
+])
+def test_upfirdn_kernel_rows_and_variants(cuda, rows, n, up, down, taps,
+                                          dtype):
+    rng = np.random.default_rng(rows + n + taps)
+    x = torch.from_numpy(rng.standard_normal((rows, n))).to(cuda, dtype)
+    h = torch.from_numpy(rng.standard_normal(taps) / taps).to(cuda, dtype)
+    (got,) = upfirdn_planes((x,), h, up, down)
+    (ref,) = upfirdn_planes_plain((x,), h, up, down)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, get_upfirdn_size(n, taps, up, down))
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert _rel(got, ref) < tol
+
+
+def test_upfirdn_complex_taps_and_planes_flat(cuda):
+    rng = np.random.default_rng(31)
+    x = (rng.standard_normal(4096) + 1j * rng.standard_normal(4096)
+         ).astype(np.complex64)
+    hc = (rng.standard_normal(31) + 1j * rng.standard_normal(31)
+          ).astype(np.complex64)
+    before = upfirdn_planes.launches
+    got = upfirdn(torch.from_numpy(hc).to(cuda), torch.from_numpy(x).to(cuda),
+                  3, 5)
+    assert upfirdn_planes.launches == before + 2      # real and imag taps
+    np.testing.assert_allclose(got.cpu().numpy(), sps.upfirdn(hc, x, 3, 5),
+                               atol=1e-4)
+    h1 = rng.standard_normal(128).astype(np.float32)
+    h2 = rng.standard_normal(95).astype(np.float32)
+    re, im = (torch.from_numpy(np.ascontiguousarray(p)).to(cuda)
+              for p in (x.real, x.imag))
+    o_re, o_im = fir_upfirdn_planes_flat(h1, h2, re, im, 5, 4)
+    c_re, c_im = fir_upfirdn_planes_flat(h1, h2, re.cpu(), im.cpu(), 5, 4)
+    assert _rel(torch.stack([o_re, o_im]).cpu(), torch.stack([c_re, c_im])) \
+        < 1e-5
+
+
+@pytest.mark.parametrize("n,k,dtype", [
+    (1000, 1, torch.float32), (1000, 3, torch.float32),
+    (4_194_304 // 64, 129, torch.float32), (5000, 1023, torch.float32),
+    (100, 129, torch.float32),                 # n < k
+    (777, 31, torch.float32),                  # partial last tile
+    (3000, 129, torch.float64), (600, 1023, torch.float64),
+    (3000, 60_001, torch.float32),             # keys past shared memory
+    (5000, 129, torch.float16), (777, 31, torch.bfloat16),  # as float32
+])
+def test_medfilt_kernel_matches_twin(cuda, n, k, dtype):
+    rng = np.random.default_rng(n + k)
+    x = torch.from_numpy(rng.standard_normal(n)).to(cuda, dtype)
+    before = medfilt_kernel.launches
+    got = medfilt_kernel(x, k)
+    assert medfilt_kernel.launches == before + 1
+    ref = medfilt_plain(x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert got.dtype == dtype
+    if n * k <= 1 << 24:
+        x64 = x.cpu().to(torch.float64).numpy()
+        assert np.array_equal(got.cpu().to(torch.float64).numpy(),
+                              sps.medfilt(x64, k))
+
+
+def test_medfilt_routes_on_the_card(cuda):
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal(2000).astype(np.float32)).to(cuda)
+    before = medfilt_kernel.launches
+    got = medfilt(x.abs() ** 2, 65)
+    assert medfilt_kernel.launches == before + 1
+    assert torch.equal(got, medfilt_plain(x.abs() ** 2, 65))
+    xh = x.to(torch.float16)
+    assert torch.equal(medfilt(xh, 65), medfilt_plain(xh, 65))
+    assert medfilt_kernel.launches == before + 2
+    x2 = x.reshape(4, 500)
+    assert torch.equal(medfilt(x2, 5), medfilt_plain(x2, 5))  # plain route
+    xi = (x * 100).to(torch.int64)
+    assert torch.equal(medfilt(xi, 5), medfilt_plain(xi, 5))
+    assert medfilt_kernel.launches == before + 2
+
+
+def test_detection_on_the_card_matches_cpu(cuda):
+    """Edges, thresholds and histogram decisions on CUDA tensors equal the
+    same calls on CPU tensors (the kernel and the twin are bit-equal)."""
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal(20_000) + 1j * rng.standard_normal(20_000)
+         ).astype(np.complex64)
+    x[3000:5000] *= 6.0
+    x[12_000:12_900] *= 6.0
+    got, ref = BurstDetector(65), BurstDetector(65)
+    assert torch.equal(got.medfilt(torch.from_numpy(x).to(cuda)).cpu(),
+                       ref.medfilt(torch.from_numpy(x)))
+    levels = np.arange(0.0, 60.0, 2.0)
+    thr = got.auto_detect_threshold(levels)
+    assert thr is not None and thr == ref.auto_detect_threshold(levels)
+    for a, b in zip(got.detect_via_threshold(thr, 8, 500),
+                    ref.detect_via_threshold(thr, 8, 500)):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(got.detect_single_emitter(capacity=8),
+                    ref.detect_single_emitter(capacity=8)):
+        assert torch.equal(a.cpu(), b)
+    amp = torch.from_numpy(np.abs(x) ** 2)
+    e_gpu = energy_detection(amp.to(cuda), 33, noise_indices=np.arange(2000))
+    e_cpu = energy_detection(amp, 33, noise_indices=np.arange(2000))
+    torch.testing.assert_close(e_gpu[0].cpu(), e_cpu[0], rtol=1e-6, atol=0)
+    for a, b in zip(e_gpu[3], e_cpu[3]):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_lfilter_direct_runs_the_upfirdn_kernel_in_full_f32(cuda):
+    """The FIR takes kernel #5 at up = down = 1, not a TF32 convolution."""
+    rng = np.random.default_rng(24)
+    taps = sps.firwin(129, 0.1).astype(np.float32)
+    x = (rng.standard_normal(50_000) + 1j * rng.standard_normal(50_000)
+         ).astype(np.complex64)
+    before = upfirdn_planes.launches
+    got = lfilter_fir(torch.from_numpy(taps).to(cuda),
+                      torch.from_numpy(x).to(cuda))
+    assert upfirdn_planes.launches == before + 1
+    ref = sps.lfilter(taps.astype(np.float64), 1.0, x.astype(np.complex128))
+    assert np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max() < 1e-6

@@ -11,8 +11,11 @@ import pytest
 import torch
 
 import pydsproutines_tpu_torch
+from pydsproutines_tpu_torch.ops.filters import (select_medfilt_path,
+                                                 select_upfirdn_path)
 from pydsproutines_tpu_torch.ops.hopper import (_build, fft_peak, fused_caf3,
-                                                fused_xcorr, wola_fused)
+                                                fused_xcorr, medfilt, upfirdn,
+                                                wola_fused)
 from pydsproutines_tpu_torch.ops.wola import select_wola_path
 from pydsproutines_tpu_torch.ops.xcorr import select_xcorr_path
 
@@ -123,7 +126,7 @@ def test_wrappers_refuse_other_devices():
 def test_build_sources_are_the_package_csrc():
     names = [p.name for p in _build.sources()]
     assert names == ["fft_peak.cu", "fused_caf3.cu", "fused_xcorr.cu",
-                     "wola_fused.cu"]
+                     "medfilt.cu", "upfirdn.cu", "wola_fused.cu"]
     assert [p.name for p in _build.headers()] == ["cgemm.cuh"]
     text = "".join(p.read_text() for p in _build.sources() + _build.headers())
     assert "torch/extension.h" not in text
@@ -147,3 +150,78 @@ def test_build_digest_covers_the_headers(tmp_path, monkeypatch):
 def test_package_data_ships_the_headers():
     text = (PKG.parent / "pyproject.toml").read_text()
     assert '"csrc/*.cu", "csrc/*.cuh"' in text
+
+
+@pytest.mark.parametrize("n,taps,up,down,dtype", [
+    (4_194_304, 730, 5, 4, torch.float32),      # the chain's geometry
+    (4_194_304, 730, 5, 4, torch.complex64),
+    (1000, 16, 2, 3, torch.float64),
+    (1, 1, 8, 7, torch.float32),                # far below the TPU gate
+    (3000, 30_000, 1, 1, torch.float32),        # taps past shared memory
+    (50_000, 9, 1, 20_000, torch.float32),      # span past shared memory
+    (100, 5, 3, 2, torch.float16),              # computed in float32
+])
+def test_upfirdn_router_on_cuda(n, taps, up, down, dtype):
+    path, reason = select_upfirdn_path(n, taps, up, down, dtype, "cuda")
+    assert path == "upfirdn-hopper", reason
+    assert "gate" in reason and "does not apply" in reason
+    assert "any tap length" in reason
+    rdt = torch.float64 if dtype == torch.float64 else torch.float32
+    assert str(rdt) in reason
+
+
+@pytest.mark.parametrize("ndim,dtype,k,path,why", [
+    (1, torch.float32, 129, "medfilt-hopper", "32 key bits"),
+    (1, torch.float64, 1023, "medfilt-hopper", "64 key bits"),
+    (1, torch.float32, 60_001, "medfilt-hopper", "any odd k"),
+    (2, torch.float32, 5, "plain", "1-D"),
+    (1, torch.int64, 5, "plain", "integer"),
+    (1, torch.float16, 5, "medfilt-hopper", "filtered as float32"),
+    (1, torch.bfloat16, 5, "medfilt-hopper", "filtered as float32"),
+])
+def test_medfilt_router_on_cuda(ndim, dtype, k, path, why):
+    got, reason = select_medfilt_path(ndim, dtype, "cuda", k)
+    assert got == path and why in reason, reason
+
+
+def test_filter_routers_on_cpu():
+    assert select_upfirdn_path(4096, 95, 5, 4, torch.float32,
+                               "cpu")[0] == "plain"
+    assert select_medfilt_path(1, torch.float32, "cpu", 129)[0] == "plain"
+
+
+def test_filter_kernel_launches_without_cuda_raise():
+    """The upfirdn and medfilt launch paths raise when there is no GPU; they
+    never hand the work to the plain twin."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA present: this checks the CPU-only behaviour")
+    x = torch.zeros(64, dtype=torch.float32)
+    counters = (upfirdn.upfirdn_planes, medfilt.medfilt_kernel)
+    before = [c.launches for c in counters]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        upfirdn._upfirdn_cuda((x, x), torch.ones(5), 5, 4, 80, None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        medfilt._medfilt_cuda(x, 5)
+    assert [c.launches for c in counters] == before
+
+
+def test_filter_wrappers_refuse_other_devices():
+    x = torch.zeros(64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        upfirdn.upfirdn_planes((x,), torch.ones(5, device="meta"), 5, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        medfilt.medfilt_kernel(x, 5)
+
+
+def test_filter_wrappers_check_their_inputs():
+    x = torch.zeros(64)
+    with pytest.raises(ValueError, match="odd"):
+        medfilt.medfilt_kernel(x, 4)
+    with pytest.raises(ValueError, match="1-D real"):
+        medfilt.medfilt_kernel(x.reshape(8, 8), 3)
+    with pytest.raises(ValueError, match="real float planes"):
+        upfirdn.upfirdn_planes((x.to(torch.complex64),), torch.ones(3), 1, 1)
+    with pytest.raises(ValueError, match="taps are"):
+        upfirdn.upfirdn_planes((x,), torch.ones(3, dtype=torch.float64), 1, 1)
+    with pytest.raises(ValueError, match="differ"):
+        upfirdn.upfirdn_planes((x, x[:32]), torch.ones(3), 1, 1)
