@@ -17,7 +17,12 @@
    the JAX bench's chain (4,194,304 complex samples, 128 FIR and 95
    resampler taps, up 5, down 4: 730 combined taps), and the median filter
    at 4,194,304 float32 samples with k = 129 (bit-equal), each also against
-   scipy at a reduced size.
+   scipy at a reduced size; the group CAF at the JAX bench's group-xcorr
+   cell (8 groups of 4096 samples every 16,384, 128 CZT bins of fs/16384,
+   1024 shifts of an rx of 119,872 samples, a copy planted at shift 517 and
+   bin 70), on the uniform sweep and on a sorted list of 128 of its shifts;
+   the sliding normalised matched filter at 4,194,304 samples x 4 templates
+   of 1024 with one template planted, and against numpy at a reduced size.
 3. Drives the main path through the public entry points, with every kernel's
    launch count set to 0 first: ``WidebandReceiver(64 ch, 2048 taps,
    template 1024, 256 shifts).run`` on an 8,388,608-sample wideband scene
@@ -29,14 +34,25 @@
    on channel 1: ``Channeliser.channelise`` -> strongest channel ->
    ``BurstDetector(129).medfilt`` -> ``auto_detect_threshold`` ->
    ``detect_via_threshold`` -> ``fast_xcorr`` on each detected slice.
+   Then, each with every launch count set to 0 just before it and read
+   just after: ``GroupXcorrCZT(...).xcorr`` over the bench cell's 1024
+   shifts ("group-caf-hopper"), and ``sliding_multiply_normalised`` at
+   4,194,304 x 4 x 1024.
    Checks the routes, the launch counts, the planted channel, edges, shifts
    and bins, the receiver's answer and the detection chain's against the
-   same calls on the CPU (plain twins), and both big-window routes against
-   the same fast_xcorr call on CPU tensors at a reduced size.
-4. Times each kernel, its twin, the whole receiver step, the whole
-   detection chain and the resampling chain's public entry point on CUDA
-   events (one warm-up, median of >= 3), each line tagged with the card's
-   name and power limit.
+   same calls on the CPU (plain twins), both big-window routes and the group
+   sweep (64 shifts) against the same calls on CPU tensors at a reduced
+   size.
+4. Times each kernel, its twin, the one PyTorch library call that computes
+   the same function where there is one (timed here only; the port never
+   calls it), the whole receiver step, the whole detection chain, the
+   resampling chain's and the group sweep's public entry points and
+   ``sliding_multiply_normalised`` on CUDA events (one warm-up, median of
+   >= 3), each line tagged with the card's name and power limit; and
+   computes each kernel's bound: the larger of the fewest operations that
+   compute its function (its own algorithm's or an FFT formulation's,
+   whichever is fewer; both are printed) over the f32 peak and its bytes
+   (each input read once, each output written once) over the HBM rate.
 
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -47,6 +63,7 @@ machine without CUDA.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -69,6 +86,20 @@ CAF_RTOL = 1e-4
 #   atol 2e-4*sqrt(T), rtol 1e-4.
 UPFIRDN_RTOL = 1e-5
 # - medfilt kernel vs twin and scipy: bit-equal (an exact order statistic).
+# - group CAF |C|^2 kernel vs twin: per-shift maximum within CAF_RTOL (f32
+#   sums of 32,768 products in another order); the planted shift and bin
+#   equal; and every bin of every shift, on the QF^2 scale users threshold,
+#   within GROUP_QF2_ATOL, on the sweep and on the list, as is the public
+#   sweep's grid on the card vs on the CPU. Sound runs read 8.1e-7 (H100);
+#   a noise bin's QF^2 is about 1/(G*m) = 3.1e-5, so a bin moved or lost
+#   anywhere in the grid exceeds the limit.
+GROUP_QF2_ATOL = 4e-6
+# - sliding QF^2 kernel vs twin and numpy: max|d| / max|ref| < 1e-5 (the JAX
+#   kernel test's bound, tests/test_extras.py:317).
+SLIDING_RTOL = 1e-5
+
+# One H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores and HBM.
+F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 
 NCH, TAPS, ROWS = 64, 2048, 131072
 N_BIG, SHIFTS_BIG = 1_000_000, 128
@@ -80,6 +111,13 @@ N_3_CPU, N_4_CPU = 2**21, 65536          # CPU comparison of the two routes
 N_FIR, FIR_TAPS, RS_TAPS, UP, DOWN = 4_194_304, 128, 95, 5, 4   # bench.py:204
 N_MED, MED_K = 4_194_304, 129            # ops/pallas/medfilt.py:5
 N_SMALL = 65536                          # reduced-size checks against scipy
+# the JAX bench's group-xcorr cell (bench.py:340): 8 groups of 4096 every
+# 16,384, 128 bins of fs/4096/4 at fs = 1e6, 1024 shifts of step 1
+G_GROUPS, G_LEN, G_BINS, G_SHIFTS, G_FS = 8, 4096, 128, 1024, 1e6
+G_STAR, G_BIN = 517, 70                  # planted shift and CZT bin
+G_LIST, G_CPU = 128, 64                  # shift-list length; CPU check span
+N_SL, T_SL, L_SL = 4_194_304, 4, 1024    # sliding: chain length, templates
+SL_T, SL_S = 2, 1_234_567                # planted template and shift
 BURSTS = (20000, 60000, 100000)          # channel-rate burst positions
 EDGE_MARGIN = 16                         # detected edge vs planted burst
 SEARCH = 64                              # xcorr shifts either side of an edge
@@ -94,6 +132,66 @@ def check(cond: bool, msg: str) -> None:
 
 def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
+
+
+def fft_flop(n: float) -> float:
+    """Operations of one n-point complex FFT, the customary 5 n log2 n."""
+    return 5.0 * n * math.log2(n) if n > 1 else 0.0
+
+
+def ols_flop(n_out: int, taps: int, filters: int) -> float:
+    """Operations of the cheapest overlap-save FFT correlation of one
+    complex stream with ``filters`` filters of ``taps`` samples, ``n_out``
+    outputs each, over power-of-two blocks: each filter's transform once;
+    per block one forward transform shared by the filters, and per filter a
+    product (6 per point) and an inverse transform."""
+    best, nfft = math.inf, 1 << max(taps - 1, 0).bit_length()
+    while True:
+        valid = nfft - taps + 1
+        blocks = -(-n_out // valid)
+        best = min(best, filters * fft_flop(nfft) + blocks * (
+            fft_flop(nfft) + filters * (6.0 * nfft + fft_flop(nfft))))
+        if valid >= n_out:
+            return best
+        nfft *= 2
+
+
+def bound(algorithm_flop: float, fft_form_flop: float,
+          nbytes: float) -> dict:
+    """The least time one H100 could take for a kernel's function: the
+    larger of the fewest f32 operations that compute it (its own
+    algorithm's, ``algorithm_flop``, or an FFT formulation's, whichever is
+    fewer) over the f32 peak, and the bytes it must move (each input read
+    once, each output written once) over the HBM rate."""
+    flop = min(algorithm_flop, fft_form_flop)
+    t_ops, t_bytes = flop / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_flop": flop, "algorithm_flop": algorithm_flop,
+            "bound_bytes": nbytes}
+
+
+def group_scene(rng, device):
+    """(GroupXcorrCZT built with no device, so on the card; the same on
+    the CPU; rx on ``device``) at the bench's group-xcorr cell: a random
+    template's 8 groups planted at shift G_STAR on CZT bin G_BIN, in
+    noise."""
+    import torch
+    from pydsproutines_tpu_torch.ops.groupxcorr import GroupXcorrCZT
+    starts = np.arange(G_GROUPS) * 4 * G_LEN
+    span = int(starts[-1] + G_LEN)
+    y = (rng.standard_normal(span) + 1j * rng.standard_normal(span))
+    rxlen = span + G_SHIFTS + 64
+    rx = 0.7 * (rng.standard_normal(rxlen) + 1j * rng.standard_normal(rxlen))
+    bw = G_FS / G_LEN / 4
+    f1, f2 = -G_BINS / 2 * bw, (G_BINS / 2 - 1) * bw
+    f_star = f1 + G_BIN * bw
+    rx[G_STAR: G_STAR + span] += y * np.exp(2j * np.pi * f_star
+                                            * np.arange(span) / G_FS)
+    args = (y.astype(np.complex64), starts, np.full(G_GROUPS, G_LEN), f1, f2,
+            bw, G_FS)
+    return (GroupXcorrCZT(*args), GroupXcorrCZT(*args, device="cpu"),
+            torch.from_numpy(rx.astype(np.complex64)).to(device))
 
 
 def planted_sweep(rng, n, num_shifts, s_star, f_star, device):
@@ -237,7 +335,7 @@ def main() -> int:
                                                      get_upfirdn_size, medfilt,
                                                      select_medfilt_path,
                                                      select_upfirdn_path)
-    from pydsproutines_tpu_torch.ops.fft import best_two_factor
+    from pydsproutines_tpu_torch.ops.fft import best_two_factor, find_triple
     from pydsproutines_tpu_torch.ops.hopper import _build
     from pydsproutines_tpu_torch.ops.hopper.fft_peak import (
         peak_sweep, stage2_peak, stage2_peak_plain, window_stage1)
@@ -245,14 +343,22 @@ def main() -> int:
         caf3_peak, caf3_peak_plain)
     from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (
         caf_peak, caf_peak_plain, split_tables)
+    from pydsproutines_tpu_torch.ops.groupxcorr import select_group_caf_path
+    from pydsproutines_tpu_torch.ops.hopper.group_caf import (
+        _group_caf_cuda, group_caf, group_caf_plain)
     from pydsproutines_tpu_torch.ops.hopper.medfilt import (medfilt_kernel,
                                                             medfilt_plain)
+    from pydsproutines_tpu_torch.ops.hopper.sliding import (
+        _sliding_cuda, sliding_multiply_normalised,
+        sliding_multiply_normalised_reference, sliding_plain)
     from pydsproutines_tpu_torch.ops.hopper.upfirdn import (
         upfirdn_planes, upfirdn_planes_plain)
     from pydsproutines_tpu_torch.ops.hopper.wola_fused import (wola_fused,
                                                                wola_plain)
     from pydsproutines_tpu_torch.ops.wola import Channeliser, select_wola_path
-    from pydsproutines_tpu_torch.ops.xcorr import fast_xcorr, select_xcorr_path
+    from pydsproutines_tpu_torch.ops.xcorr import (fast_xcorr, power_prefix,
+                                                   select_xcorr_path)
+    from pydsproutines_tpu_torch.utils.dtypes import full_f32
     from pydsproutines_tpu_torch.utils.timing import Timer, median_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -355,6 +461,8 @@ def main() -> int:
     abs4 = qf2_abs_err(km, pm, cut4, rx4, offs4, N_4)
     s2_ms = median_ms(lambda: stage2_peak(f1, tw4, w24), reps=3)
     s2_plain_ms = median_ms(lambda: stage2_peak_plain(f1, tw4, w24), reps=3)
+    with full_f32():                  # the last stage's product alone
+        s2_lib_ms = median_ms(lambda: torch.matmul(f1, w24), reps=3)
     del f1
     km, kb = peak_sweep(rx4, cc4, offs4)
     pm, pb = caf3_peak_plain(rx4, cc4, offs4)
@@ -428,6 +536,111 @@ def main() -> int:
           f"{med_plain_ms:.4f} ms, bit-equal to the twin and (at {N_SMALL}) "
           f"to scipy {tag}")
 
+    # the group CAF at the bench's group-xcorr cell: the uniform sweep, then
+    # a sorted list of 128 of its shifts holding the planted one
+    gx, gx_cpu, rx_g = group_scene(rng, dev)
+    tfold, starts_g, k_g = gx._tfold, gx._starts_t, gx.plan.k
+    offs_g = torch.arange(G_SHIFTS, device=dev)
+    pw = power_prefix(rx_g)
+
+    def gnorm(offs):                  # |C|^2 over this is the QF^2 scale
+        return gx.ystack_norm_sq * sum(pw[offs + s + G_LEN] - pw[offs + s]
+                                       for s in gx.starts.tolist())
+    listed = np.sort(np.append(rng.choice(
+        np.setdiff1d(np.arange(G_SHIFTS), [G_STAR]), G_LIST - 1,
+        replace=False), G_STAR))
+    g_err, g_abs = {}, {}
+    for name, offs in (("sweep", offs_g),
+                       ("list", torch.from_numpy(listed).to(dev))):
+        got = group_caf(rx_g, offs, starts_g, tfold, k_g)
+        ref = group_caf_plain(rx_g, offs, starts_g, tfold, k_g)
+        torch.cuda.synchronize()
+        check(got.shape == (offs.shape[0], k_g)
+              and bool(torch.isfinite(got).all()),
+              f"group CAF ({name}) shape or finiteness")
+        gm, rm = got.max(1).values, ref.max(1).values
+        g_err[name] = float(((gm - rm).abs() / rm).max())
+        check(g_err[name] < CAF_RTOL, f"group CAF ({name}) kernel vs twin "
+                                      f"rel err {g_err[name]:.3e}")
+        i_g = int(torch.argmax(gm))
+        check(int(offs[i_g]) == int(offs[int(torch.argmax(rm))]) == G_STAR
+              and int(torch.argmax(got[i_g])) == int(torch.argmax(ref[i_g]))
+              == G_BIN, f"group CAF ({name}) peak at shift {int(offs[i_g])}"
+                        f" bin {int(torch.argmax(got[i_g]))}")
+        g_abs[name] = float(((got - ref).double()
+                             / gnorm(offs)[:, None]).abs().max())
+        check(g_abs[name] < GROUP_QF2_ATOL, f"group CAF ({name}) kernel vs "
+              f"twin over the whole grid: QF^2 max|d| {g_abs[name]:.3e}")
+    g_ms = median_ms(lambda: _group_caf_cuda(rx_g, offs_g, starts_g, tfold,
+                                             k_g), reps=5)
+    g_plain_ms = median_ms(lambda: group_caf_plain(rx_g, offs_g, starts_g,
+                                                   tfold, k_g), reps=3)
+    xg = rx_g[offs_g[:, None] + (starts_g[:, None] + torch.arange(
+        G_LEN, device=dev)).reshape(1, -1)]
+    with full_f32():
+        g_lib_ms = median_ms(lambda: torch.matmul(xg, tfold), reps=5)
+    del xg
+    # the FFT formulation of the uniform sweep: each bin's column of tfold is
+    # a filter spanning the group layout, correlated with rx by overlap-save
+    g_span = int(gx.starts[-1]) + G_LEN
+    g_bound = bound(8.0 * G_SHIFTS * G_GROUPS * G_LEN * k_g,
+                    ols_flop(G_SHIFTS, g_span, k_g),
+                    tfold.numel() * 8 + rx_g.numel() * 8 + G_SHIFTS * k_g * 4)
+    print(f"group CAF {G_GROUPS}x{G_LEN}, {k_g} bins, {G_SHIFTS} shifts: "
+          f"kernel {g_ms:.4f} ms ({group_caf.splits} depth slabs), plain "
+          f"{g_plain_ms:.4f} ms, torch.matmul {g_lib_ms:.4f} ms, bound "
+          f"{g_bound['bound_ms']:.4f} ms ({g_bound['bound_by']}); per-shift "
+          f"peak rel err {g_err['sweep']:.3e} (sweep), {g_err['list']:.3e} "
+          f"({G_LIST}-shift list); QF^2 max|d| over the grid "
+          f"{g_abs['sweep']:.3e}, {g_abs['list']:.3e}; peak at shift "
+          f"{G_STAR} bin {G_BIN} {tag}")
+
+    # the sliding matched filter at the resampling chain's length
+    srng = np.random.default_rng(5)
+    x_sl = (srng.standard_normal(N_SL) + 1j * srng.standard_normal(N_SL)
+            ).astype(np.complex64)
+    t_sl = (srng.standard_normal((T_SL, L_SL))
+            + 1j * srng.standard_normal((T_SL, L_SL))).astype(np.complex64)
+    x_sl[SL_S: SL_S + L_SL] += 4 * t_sl[SL_T]
+    xs_d, ts_d = torch.from_numpy(x_sl).to(dev), torch.from_numpy(t_sl).to(dev)
+    got_s = sliding_multiply_normalised(xs_d, ts_d)
+    ref_s = sliding_plain(xs_d, ts_d)
+    torch.cuda.synchronize()
+    ns_sl = N_SL - L_SL + 1
+    check(got_s.shape == (T_SL, ns_sl) and bool(torch.isfinite(got_s).all()),
+          "sliding output shape or finiteness")
+    sl_err = rel_err(got_s, ref_s)
+    sl_abs = float((got_s - ref_s).abs().max())
+    check(sl_err < SLIDING_RTOL, f"sliding kernel vs twin rel err "
+                                 f"{sl_err:.3e}")
+    ti, si = np.unravel_index(int(torch.argmax(got_s)), got_s.shape)
+    check((ti, si) == (SL_T, SL_S), f"sliding peak at {(ti, si)}")
+    small = sliding_multiply_normalised(xs_d[:N_SMALL], ts_d).cpu().numpy()
+    truth = sliding_multiply_normalised_reference(x_sl[:N_SMALL], t_sl)
+    check(np.abs(small - truth).max() / np.abs(truth).max() < SLIDING_RTOL,
+          "sliding kernel vs numpy")
+    sl_ms = median_ms(lambda: _sliding_cuda(xs_d, ts_d), reps=5)
+    sl_plain_ms = median_ms(lambda: sliding_plain(xs_d, ts_d), reps=3)
+    # cuDNN's conv1d of the re/im planes: the complex correlation (not its
+    # normalisation) in one call, TF32 off (set above)
+    w_sl = torch.cat([torch.stack([ts_d.real, ts_d.imag], 1),
+                      torch.stack([-ts_d.imag, ts_d.real], 1)])
+    x_ri = torch.stack([xs_d.real, xs_d.imag])[None]
+    sl_lib_ms = median_ms(lambda: torch.nn.functional.conv1d(x_ri, w_sl),
+                          reps=5)
+    # FFT formulation: overlap-save over the templates, the window energies
+    # as a running sum (4 per sample) and the normalisation (3 per output)
+    sl_bound = bound(8.0 * T_SL * L_SL * ns_sl,
+                     ols_flop(ns_sl, L_SL, T_SL) + 4.0 * N_SL
+                     + 3.0 * T_SL * ns_sl,
+                     8 * N_SL + 8 * T_SL * L_SL + 4 * T_SL * ns_sl)
+    print(f"sliding {N_SL} x {T_SL} templates of {L_SL}: kernel {sl_ms:.4f} "
+          f"ms, plain {sl_plain_ms:.4f} ms, cuDNN conv1d {sl_lib_ms:.4f} ms, "
+          f"bound {sl_bound['bound_ms']:.4f} ms ({sl_bound['bound_by']}); "
+          f"rel err "
+          f"{sl_err:.3e}; vs numpy at {N_SMALL} within {SLIDING_RTOL} {tag}")
+    del ref_s, x_ri
+
     # 3) the main path, through the public entry points ------------------------
     rcv = WidebandReceiver(num_channels=NCH, num_taps=TAPS, template_len=N_RX,
                            num_shifts=SHIFTS_RX, osr=4, demod_syms=128, m=4,
@@ -463,18 +676,57 @@ def main() -> int:
     det_path_ms = timer.evt("detection chain")
     launches = {k.__name__: k.launches for k in kernels}
     det_launches = {k: launches[k] - before[k] for k in launches}
+    # this slice's paths, each with every count at 0 just before it
+    every = kernels + (group_caf, sliding_multiply_normalised)
+    for kernel in every:
+        kernel.launches = 0
+    timer.evt("counts reset")
+    qg, fg = gx.xcorr(rx_g, offs_g)
+    gi_, gj_ = np.unravel_index(int(torch.argmax(qg)), qg.shape)
+    group_path_ms = timer.evt("GroupXcorrCZT.xcorr")
+    group_launches = {k.__name__: k.launches for k in every}
+    for kernel in every:
+        kernel.launches = 0
+    timer.evt("counts reset")
+    q_sl = sliding_multiply_normalised(xs_d, ts_d)
+    sti, ssi = np.unravel_index(int(torch.argmax(q_sl)), q_sl.shape)
+    sliding_path_ms = timer.evt("sliding_multiply_normalised")
+    sliding_launches = {k.__name__: k.launches for k in every}
     print(f"main path: receiver run {rcv_ms:.2f} ms, fast_xcorr "
           f"{xcorr_ms:.2f} ms (1M x 128), {caf3_path_ms:.2f} ms (10M x 128), "
           f"{peak_path_ms:.2f} ms (1M list), fir_upfirdn_planes_flat "
           f"{fir_path_ms:.2f} ms, energy_detection {energy_ms:.2f} ms, "
-          f"detection chain {det_path_ms:.2f} ms "
-          f"(first calls), launches {launches} {tag}")
+          f"detection chain {det_path_ms:.2f} ms, GroupXcorrCZT.xcorr "
+          f"{group_path_ms:.2f} ms, sliding_multiply_normalised "
+          f"{sliding_path_ms:.2f} ms (first calls), launches {launches}; "
+          f"group sweep {group_launches}; sliding {sliding_launches} {tag}")
     print("detection:", json.dumps({**det, "launches": det_launches}))
     print("receiver:", json.dumps({k: v for k, v in out.items()
                                    if k not in ("channel_energy_db",
                                                 "demod_syms")}))
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    check(group_launches["group_caf"] > 0
+          and sliding_launches["sliding_multiply_normalised"] > 0,
+          f"the group sweep or the sliding filter skipped its kernel: "
+          f"{group_launches}, {sliding_launches}")
+    route_g = select_group_caf_path(G_GROUPS, G_LEN, k_g, torch.complex64,
+                                    dev, gx.plan.tones is not None)[0]
+    check(route_g == "group-caf-hopper", f"group sweep route {route_g}")
+    check(qg.shape == (G_SHIFTS, k_g) and bool(torch.isfinite(qg).all())
+          and (gi_, gj_) == (G_STAR, G_BIN) and 0 < float(qg.max()) <= 1,
+          f"GroupXcorrCZT.xcorr peak at shift {gi_} bin {gj_}")
+    check(q_sl.shape == (T_SL, ns_sl) and (sti, ssi) == (SL_T, SL_S)
+          and torch.equal(q_sl, got_s),
+          f"sliding_multiply_normalised peak at {(sti, ssi)}")
+    cpu_span = torch.arange(G_STAR - G_CPU // 2, G_STAR + G_CPU // 2)
+    q_cpu, _ = gx_cpu.xcorr(rx_g.cpu(), cpu_span)
+    g_cpu_err = float((qg[cpu_span].cpu() - q_cpu).abs().max())
+    check(g_cpu_err < GROUP_QF2_ATOL, f"group sweep card vs CPU: QF^2 "
+                                      f"max|d| {g_cpu_err:.3e}")
+    print(f"GroupXcorrCZT.xcorr on the card vs on the CPU ({G_CPU} shifts): "
+          f"QF^2 max|d| {g_cpu_err:.3e}; peak QF^2 {float(qg.max()):.4f}"
+          f" at shift {G_STAR} bin {G_BIN} ({fg[G_BIN]:.3f} Hz)")
     routes = (select_xcorr_path(N_3, torch.complex64, 1, dev)[0],
               select_xcorr_path(N_4, torch.complex64, None, dev)[0])
     check(routes == ("fused3-hopper", "peak-kernel-hopper"),
@@ -530,7 +782,8 @@ def main() -> int:
     ref = WidebandReceiver.from_numpy_params(
         {"f_tap": rcv.f_tap.cpu().numpy(), "num_channels": NCH,
          "num_taps": TAPS, "template_len": N_RX, "num_shifts": SHIFTS_RX,
-         "osr": 4, "demod_syms": 128, "m": 4}).run(tri.cpu(), xri.cpu())
+         "osr": 4, "demod_syms": 128, "m": 4},
+        device="cpu").run(tri.cpu(), xri.cpu())
     for key in ("best_channel", "best_shift", "freq_bin", "demod_syms"):
         check(out[key] == ref[key], f"receiver {key}: card {out[key]} vs "
               f"plain twin {ref[key]}")
@@ -539,7 +792,7 @@ def main() -> int:
 
     # the same detection chain and scene on the CPU: plain twins throughout
     det_cpu = detection_chain(
-        Channeliser(num_channels=NCH, f_tap=chan.f_tap.cpu()),
+        Channeliser(num_channels=NCH, f_tap=chan.f_tap.cpu(), device="cpu"),
         tmpl_b.cpu(), rx_b.cpu())
     for key in ("channel", "threshold", "edges"):
         check(det[key] == det_cpu[key], f"detection {key}: card {det[key]} "
@@ -577,6 +830,44 @@ def main() -> int:
     det_ms = median_ms(lambda: detection_chain(chan, tmpl_b, rx_b), reps=5)
     print(f"detection chain, {ROWS * NCH} samples, {len(BURSTS)} bursts: "
           f"{det_ms:.4f} ms ({ROWS * NCH / det_ms / 1e6:.3f} GS/s) {tag}")
+    gx_ms = median_ms(lambda: gx.xcorr(rx_g, offs_g), reps=5)
+    gx_rate = G_GROUPS * G_LEN * G_SHIFTS / gx_ms / 1e6
+    print(f"GroupXcorrCZT.xcorr {G_GROUPS}x{G_LEN}x{k_g}x{G_SHIFTS}: "
+          f"{gx_ms:.4f} ms ({gx_rate:.3f} Gsample-shift/s) {tag}")
+    sl_path_ms = median_ms(lambda: sliding_multiply_normalised(xs_d, ts_d),
+                           reps=5)
+    print(f"sliding_multiply_normalised {N_SL} x {T_SL} x {L_SL}: "
+          f"{sl_path_ms:.4f} ms {tag}")
+
+    # each kernel's bound at the shapes timed above: its own algorithm's
+    # operations, an FFT formulation's, and its bytes
+    outs_w = ROWS * NCH
+    # WOLA: the direct IDFT per row, or an FFT; the 32-tap fold either way
+    w_bound = bound(outs_w * (8.0 * NCH + 4.0 * TAPS / NCH),
+                    ROWS * (4.0 * TAPS + fft_flop(NCH)),
+                    16 * outs_w + 4 * TAPS)
+    # CAF sweeps: per shift the window product (6 n), a transform, |.|^2
+    # (3 n); the kernels' DFT stages are products against tables
+    c_bound = bound(8.0 * N_BIG * sum(best_two_factor(N_BIG)) * SHIFTS_BIG,
+                    SHIFTS_BIG * (9.0 * N_BIG + fft_flop(N_BIG)),
+                    8 * (2 * N_BIG + 2 * SHIFTS_BIG - 1))
+    c3_bound = bound(8.0 * N_3 * sum(find_triple(N_3)) * SHIFTS_3,
+                     SHIFTS_3 * (9.0 * N_3 + fft_flop(N_3)),
+                     8 * (2 * N_3 + 2 * SHIFTS_3 - 1))
+    # the last stage: per row a twiddle (6 n2), an n2-point transform, |.|^2
+    s2_bound = bound(8.0 * SHIFTS_4 * n1 * n2 * n2,
+                     SHIFTS_4 * n1 * (9.0 * n2 + fft_flop(n2)),
+                     8 * (SHIFTS_4 * n1 * n2 + n1 * n2 + n2 * n2 + SHIFTS_4))
+    # upfirdn: two planes x real taps per output phase, or each phase's
+    # filter by overlap-save over the input
+    f_bound = bound(2.0 * 2 * n_fir_out * -(-h64.size // UP),
+                    ols_flop(N_FIR, -(-h64.size // UP), UP),
+                    8 * (N_FIR + n_fir_out) + 4 * h64.size)
+    # integer compare steps are not f32 work: bytes alone
+    m_bound = bound(0.0, 0.0, 8 * N_MED)
+
+    def costs(b, lib):
+        return {**b, "library_ms": lib}
 
     rx_caf = caf[N_RX]
     print(json.dumps({"kernels": [
@@ -585,13 +876,14 @@ def main() -> int:
          "replaces": "pydsproutines_tpu/ops/pallas/wola_fused.py:99",
          "shape": f"{ROWS}x{NCH} ch, {TAPS} taps",
          "launches": launches["wola_fused"], "max_abs_err": wola_abs,
-         "ms": wola_ms, "plain_ms": wola_plain_ms},
+         "ms": wola_ms, "plain_ms": wola_plain_ms, **costs(w_bound, None)},
         {"name": "caf_peak", "route": "cuda",
          "source": "pydsproutines_tpu_torch/csrc/fused_xcorr.cu",
          "replaces": "pydsproutines_tpu/ops/pallas/fused_xcorr.py:60",
          "shape": f"n={N_BIG} x {SHIFTS_BIG} shifts",
          "launches": launches["caf_peak"], "max_abs_err": big["max_abs_err"],
          "ms": big["ms"], "plain_ms": big["plain_ms"],
+         **costs(c_bound, big["plain_ms"]),
          "receiver_shape": {"shape": f"n={N_RX} x {SHIFTS_RX} shifts",
                             "max_abs_err": rx_caf["max_abs_err"],
                             "ms": rx_caf["ms"],
@@ -602,13 +894,14 @@ def main() -> int:
          "also_replaces": "pydsproutines_tpu/ops/pallas/fused_caf3.py:210",
          "shape": f"n={N_3} x {SHIFTS_3} shifts",
          "launches": launches["caf3_peak"], "max_abs_err": abs3,
-         "ms": caf3_ms, "plain_ms": caf3_plain_ms},
+         "ms": caf3_ms, "plain_ms": caf3_plain_ms,
+         **costs(c3_bound, caf3_plain_ms)},
         {"name": "stage2_peak", "route": "cuda",
          "source": "pydsproutines_tpu_torch/csrc/fft_peak.cu",
          "replaces": "pydsproutines_tpu/ops/pallas/fft_peak.py:48",
          "shape": f"({SHIFTS_4}, {n1}, {n2}) stage-1 output of n={N_4}",
          "launches": launches["stage2_peak"], "max_abs_err": abs4,
-         "ms": s2_ms, "plain_ms": s2_plain_ms,
+         "ms": s2_ms, "plain_ms": s2_plain_ms, **costs(s2_bound, s2_lib_ms),
          "sweep": {"shape": f"n={N_4} x {SHIFTS_4} listed shifts",
                    "ms": sweep_ms, "plain_ms": sweep_plain_ms}},
         {"name": "upfirdn_planes", "route": "cuda",
@@ -617,15 +910,33 @@ def main() -> int:
          "also_replaces": "pydsproutines_tpu/ops/pallas/upfirdn.py:209",
          "shape": f"2 planes x {N_FIR}, {h64.size} taps, up {UP} down {DOWN}",
          "launches": launches["upfirdn_planes"], "max_abs_err": fir_abs,
-         "ms": fir_ms, "plain_ms": fir_plain_ms},
+         "ms": fir_ms, "plain_ms": fir_plain_ms, **costs(f_bound, None)},
         {"name": "medfilt_kernel", "route": "cuda",
          "source": "pydsproutines_tpu_torch/csrc/medfilt.cu",
          "replaces": "pydsproutines_tpu/ops/pallas/medfilt.py:32",
          "shape": f"{N_MED} float32, k={MED_K}",
          "launches": launches["medfilt_kernel"], "max_abs_err": med_abs,
-         "ms": med_ms, "plain_ms": med_plain_ms},
+         "ms": med_ms, "plain_ms": med_plain_ms,
+         **costs(m_bound, med_plain_ms)},
+        {"name": "group_caf", "route": "cuda",
+         "source": "pydsproutines_tpu_torch/csrc/group_caf.cu",
+         "replaces": "pydsproutines_tpu/ops/pallas/group_caf.py:46",
+         "shape": f"{G_GROUPS} groups x {G_LEN}, {k_g} bins, {G_SHIFTS} "
+                  f"shifts",
+         "launches": group_launches["group_caf"],
+         "max_abs_err": g_abs["sweep"],
+         "ms": g_ms, "plain_ms": g_plain_ms, **costs(g_bound, g_lib_ms)},
+        {"name": "sliding_multiply_normalised", "route": "cuda",
+         "source": "pydsproutines_tpu_torch/csrc/sliding.cu",
+         "replaces": "pydsproutines_tpu/ops/pallas/sliding.py:43",
+         "shape": f"{N_SL} samples x {T_SL} templates of {L_SL}",
+         "launches": sliding_launches["sliding_multiply_normalised"],
+         "max_abs_err": sl_abs, "ms": sl_ms, "plain_ms": sl_plain_ms,
+         **costs(sl_bound, sl_lib_ms)},
     ], "receiver_step_ms": step_ms, "detection_chain_ms": det_ms,
-        "resampling_chain_ms": fir_chain_ms, "card": card}))
+        "resampling_chain_ms": fir_chain_ms, "group_xcorr_ms": gx_ms,
+        "group_xcorr_gsample_shift_per_s": gx_rate,
+        "sliding_ms": sl_path_ms, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ from pydsproutines_tpu_torch.ops.wola import select_wola_path, wola
 from pydsproutines_tpu_torch.ops.xcorr import (_fast_xcorr_impl,
                                                convert_qf2_to_eff_snr,
                                                select_xcorr_path)
+from pydsproutines_tpu_torch.utils.device import resolve_device
 
 
 class WidebandReceiver(nn.Module):
@@ -40,6 +41,8 @@ class WidebandReceiver(nn.Module):
     m : PSK order.
     f_tap : prototype filter taps; default ``scipy.signal.firwin(num_taps,
         1/num_channels)``, the JAX receiver's.
+    device : where the taps live; ``cuda`` when None (which raises without
+        CUDA: pass ``device="cpu"`` for a CPU run).
     """
 
     def __init__(self, num_channels: int = 64, num_taps: int = 512,
@@ -54,7 +57,7 @@ class WidebandReceiver(nn.Module):
             from scipy import signal as sps
             f_tap = sps.firwin(num_taps, 1.0 / self.dec)
         self.register_buffer("f_tap", torch.tensor(
-            np.asarray(f_tap, dtype=np.float32), device=device))
+            np.asarray(f_tap, dtype=np.float32), device=resolve_device(device)))
         if self.f_tap.shape != (self.num_taps,):
             raise ValueError(f"f_tap has shape {tuple(self.f_tap.shape)}, "
                              f"expected ({self.num_taps},)")

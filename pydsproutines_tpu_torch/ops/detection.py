@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from pydsproutines_tpu_torch.ops.filters import medfilt
+from pydsproutines_tpu_torch.utils.device import resolve_device
 from pydsproutines_tpu_torch.utils.dtypes import to_tensor
 
 
@@ -148,7 +149,9 @@ class BurstDetector:
     def from_numpy_params(cls, params: dict, device=None) -> "BurstDetector":
         """Carry a detector across from ``{"medfiltlen", "amp_sq",
         "medfiltered", "threshold"}``: numpy copies of a JAX
-        ``BurstDetector``'s state (arrays may be None)."""
+        ``BurstDetector``'s state (arrays may be None), placed on
+        ``device`` (``cuda`` when None)."""
+        device = resolve_device(device)
         bd = cls(int(params["medfiltlen"]))
         for name in ("amp_sq", "medfiltered"):
             a = params.get(name)

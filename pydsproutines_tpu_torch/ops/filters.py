@@ -39,6 +39,7 @@ from pydsproutines_tpu_torch.ops.hopper.medfilt import (medfilt_kernel,
                                                         medfilt_plain)
 from pydsproutines_tpu_torch.ops.hopper.upfirdn import (get_upfirdn_size,
                                                         upfirdn_planes)
+from pydsproutines_tpu_torch.utils.device import resolve_device
 from pydsproutines_tpu_torch.utils.dtypes import real_dtype_for, to_tensor
 from pydsproutines_tpu_torch.utils.fftlen import next_fast_len
 
@@ -172,11 +173,12 @@ class StreamFilter:
     """Streaming FIR filter with an explicit delay-line carry.
 
     Successive calls to :meth:`lfilter` on contiguous blocks give the same
-    output as one call on the concatenated signal."""
+    output as one call on the concatenated signal. The state lives on
+    ``device``, ``cuda`` when None."""
 
     def __init__(self, taps, dtype: torch.dtype = torch.complex64,
                  device=None):
-        self.taps = to_tensor(taps, device)
+        self.taps = to_tensor(taps, resolve_device(device))
         self.dtype = dtype
         self.delay = torch.zeros(self.taps.shape[-1], dtype=dtype,
                                  device=self.taps.device)
@@ -186,7 +188,7 @@ class StreamFilter:
         """Continue a stream from ``{"taps": ..., "delay": ...}``, numpy
         copies of a JAX ``StreamFilter``'s state (``np.asarray(sf.taps)``,
         ``np.asarray(sf.delay)``)."""
-        delay = to_tensor(params["delay"], device)
+        delay = to_tensor(params["delay"], resolve_device(device))
         sf = cls(params["taps"], dtype=delay.dtype, device=device)
         sf.delay = delay
         return sf
@@ -285,11 +287,12 @@ def fir_upfirdn_planes_flat(fir_taps, rs_taps, re: torch.Tensor,
 class StreamUpfirdn:
     """Streaming upfirdn with delay memory: each block is prepended with the
     previous block's tail and the warm-up region is skipped, so contiguous
-    blocks concatenate seamlessly."""
+    blocks concatenate seamlessly. The state lives on ``device``, ``cuda``
+    when None."""
 
     def __init__(self, taps, up: int, down: int, memory: int,
                  dtype: torch.dtype = torch.complex64, device=None):
-        self.taps = to_tensor(taps, device)
+        self.taps = to_tensor(taps, resolve_device(device))
         self.up = int(up)
         self.down = int(down)
         self.memory = int(memory)
@@ -301,7 +304,7 @@ class StreamUpfirdn:
     def from_numpy_params(cls, params: dict, device=None) -> "StreamUpfirdn":
         """Continue a stream from ``{"taps", "up", "down", "memory",
         "delay"}``, numpy copies of a JAX ``StreamUpfirdn``'s state."""
-        delay = to_tensor(params["delay"], device)
+        delay = to_tensor(params["delay"], resolve_device(device))
         su = cls(params["taps"], params["up"], params["down"],
                  params["memory"], dtype=delay.dtype, device=device)
         su.delay = delay

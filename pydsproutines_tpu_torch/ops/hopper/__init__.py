@@ -10,8 +10,12 @@
   (csrc/fused_caf3.cu);
 * ``upfirdn``: scipy-exact upfirdn of real-tap planes (csrc/upfirdn.cu);
 * ``medfilt``: scipy-exact median filter by radix select
-  (csrc/medfilt.cu).
+  (csrc/medfilt.cu);
+* ``group_caf``: group cross-correlation CAF, the CZT group-xcorr sweep
+  (csrc/group_caf.cu);
+* ``sliding``: sliding normalised multi-template matched filter
+  (csrc/sliding.cu).
 
-The CAF kernels share ``csrc/cgemm.cuh``. Each wrapper counts its launches in
-``<wrapper>.launches``.
+The CAF kernels and the group CAF share ``csrc/cgemm.cuh``. Each wrapper
+counts its launches in ``<wrapper>.launches``.
 """

@@ -49,6 +49,9 @@ _SIGNATURES = {
                          + [_P], _I),
     "pdsp_medfilt_f32": ([_P, _P, _L, _I, _P], _I),
     "pdsp_medfilt_f64": ([_P, _P, _L, _I, _P], _I),
+    "pdsp_group_caf": ([_P, _L, _P, _I, _P, _I, _I, _P, _I, _P, _L, _P, _P,
+                        _P], _I),
+    "pdsp_sliding": ([_P, _L, _P, _I, _I, _P, _P, _P], _I),
 }
 
 

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from pydsproutines_tpu_torch.ops.hopper.wola_fused import wola_fused, wola_plain
+from pydsproutines_tpu_torch.utils.device import resolve_device
 from pydsproutines_tpu_torch.utils.freq import make_freq
 
 
@@ -61,12 +62,14 @@ class Channeliser(nn.Module):
     """Streaming WOLA channelizer (reference Channeliser): keeps a
     filter-length delay line, prepends it each call, and discards the first
     len(f_tap)/Dec warm-up rows so consecutive blocks concatenate exactly.
+    Its state lives on ``device``, ``cuda`` when None.
     """
 
     def __init__(self, num_taps: int | None = None, num_channels: int = 64,
                  dec: int | None = None, f_tap=None,
                  dtype: torch.dtype = torch.complex64, device=None):
         super().__init__()
+        device = resolve_device(device)
         if dec is None:
             dec = num_channels
         self.dec = int(dec)

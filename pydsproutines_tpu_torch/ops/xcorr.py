@@ -37,6 +37,11 @@ float64 keeps the running-sum error far below the f32 result's rounding at
 any capture length, so no window/length gate is needed. Every route
 processes shifts in chunks bounded by a byte budget (``utils.memory``).
 Bins are returned as int64; ties go to the lowest bin.
+
+The rest of the TDOA refinement chain (``fast_xcorr`` -> ``czt_xcorr`` ->
+``fine_freq_time_search``), ``GenXcorr`` and the QF^2/SNR conversions and
+Stein bounds follow; they run no TPU kernel and are plain torch (products in
+full f32) or host numpy.
 """
 
 from __future__ import annotations
@@ -49,7 +54,11 @@ from pydsproutines_tpu_torch.ops.fft import (best_two_factor, fft_factors,
 from pydsproutines_tpu_torch.ops.hopper.fft_peak import peak_sweep
 from pydsproutines_tpu_torch.ops.hopper.fused_caf3 import caf3_peak
 from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import caf_peak
-from pydsproutines_tpu_torch.utils.dtypes import real_dtype_for
+from pydsproutines_tpu_torch.ops.spectral import get_czt_plan
+from pydsproutines_tpu_torch.utils.device import resolve_device
+from pydsproutines_tpu_torch.utils.dtypes import full_f32, real_dtype_for
+from pydsproutines_tpu_torch.utils.fftlen import next_fast_len
+from pydsproutines_tpu_torch.utils.freq import make_freq
 from pydsproutines_tpu_torch.utils.memory import chunk_shifts
 
 # n from which a sweep with a factor triple takes the three-stage kernel
@@ -64,6 +73,14 @@ DOT_BYTES_PER_SAMPLE = 16
 
 def _abs_sq(x: torch.Tensor) -> torch.Tensor:
     return x.real * x.real + x.imag * x.imag
+
+
+def power_prefix(rx: torch.Tensor) -> torch.Tensor:
+    """P with P[i] = sum_{j < i} |rx[j]|^2 in float64 (P[0] = 0): the
+    energy of rx[s:s+n] is P[s+n] - P[s], for any number of windows from
+    one pass over rx."""
+    return torch.cat([rx.new_zeros(1, dtype=torch.float64),
+                      torch.cumsum(_abs_sq(rx).double(), 0)])
 
 
 def gather_shift_slices(rx: torch.Tensor, shifts: torch.Tensor, n: int,
@@ -190,8 +207,7 @@ def _fast_xcorr_impl(cutout: torch.Tensor, rx: torch.Tensor,
     rdt = real_dtype_for(rx.dtype)
     cutout_conj = cutout.conj().resolve_conj().contiguous()
     cutout_norm_sq = _abs_sq(cutout).sum(dtype=torch.float64)
-    power = torch.cat([rx.new_zeros(1, dtype=torch.float64),
-                       torch.cumsum(_abs_sq(rx).double(), 0)])
+    power = power_prefix(rx)
     rx_norm_sq = power[shifts + n] - power[shifts]
     norm = torch.sqrt(cutout_norm_sq * rx_norm_sq)
     if path == "dot":
@@ -285,3 +301,215 @@ def calc_qf2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def convert_qf2_to_eff_snr(qf2):
     """For xcorr of two noisy signals."""
     return 2.0 * qf2 / (1.0 - qf2)
+
+
+# ---------------------------------------------------------------------------
+# czt_xcorr: frequency scan on an arbitrary CZT grid
+# ---------------------------------------------------------------------------
+
+def czt_xcorr(cutout: torch.Tensor, rx: torch.Tensor, f_search_min: float,
+              f_search_max: float, fs: float, czt_step: float = 0.1,
+              output_caf: bool = False, shifts=None, batch_size: int = 128):
+    """Sliding xcorr with a CZT fine-frequency scan (reference cztXcorr).
+
+    Returns (caf, f_search) when ``output_caf`` (the (shifts, k) QF^2 grid
+    and the scan frequencies) else (complex normalized peak, peak frequency
+    in Hz) per shift. The CZT is the plan of ``ops/spectral`` on rx's
+    device; window energies come from the float64 prefix sum."""
+    n = cutout.shape[-1]
+    if n > rx.shape[-1]:
+        raise ValueError(f"cutout (len {n}) is longer than rx "
+                         f"(len {rx.shape[-1]})")
+    plan = get_czt_plan(n, float(f_search_min), float(f_search_max),
+                        float(czt_step), float(fs), cutout.dtype,
+                        str(rx.device))
+    rdt = real_dtype_for(cutout.dtype)
+    f_search = torch.from_numpy(plan.freqs()).to(rx.device, rdt)
+    if shifts is None:
+        shifts = torch.arange(rx.shape[-1] - n + 1, device=rx.device)
+    shifts = torch.as_tensor(shifts, dtype=torch.int64, device=rx.device)
+    if shifts.shape[0] == 0:
+        raise ValueError("shifts must be non-empty")
+    if int(shifts.min()) < 0 or int(shifts.max()) + n > rx.shape[-1]:
+        raise ValueError("a shift's window runs past rx")
+    rx = rx.to(cutout.dtype)
+    cutout_norm_sq = _abs_sq(cutout).sum(dtype=torch.float64)
+    power = power_prefix(rx)
+    rx_norm_sq = power[shifts + n] - power[shifts]
+    cutout_conj = cutout.conj()
+    rows = [plan(w * cutout_conj) for w in _windows(
+        rx, shifts, n, min(batch_size, shifts.shape[0]), None,
+        PLAIN_BYTES_PER_SAMPLE)]
+    spec = torch.cat(rows)
+    mag = _abs_sq(spec)
+    if output_caf:
+        return (mag.double() / (rx_norm_sq[:, None] * cutout_norm_sq)).to(
+            rdt), f_search
+    mi = torch.argmax(mag, dim=-1)
+    peak = torch.gather(spec, -1, mi[:, None])[:, 0]
+    norm = torch.sqrt(rx_norm_sq * cutout_norm_sq).to(rdt)
+    return peak / norm, f_search[mi]
+
+
+# ---------------------------------------------------------------------------
+# Fine time/frequency refinement
+# ---------------------------------------------------------------------------
+
+def make_time_scan_steervec(td_scan_range, fs: float, siglen: int,
+                            dtype: torch.dtype = torch.complex64
+                            ) -> torch.Tensor:
+    """Steering-vector matrix exp(1j*2*pi*f*td) over the FFT frequency axis
+    (reference makeTimeScanSteervec), on the scan range's device."""
+    rdt = real_dtype_for(dtype)
+    td = torch.as_tensor(td_scan_range).to(rdt)
+    f = make_freq(siglen, fs, dtype=rdt, device=td.device)
+    phase = 2 * np.pi * f[None, :] * td[:, None]
+    return torch.polar(torch.ones_like(phase), phase).to(dtype)
+
+
+def fine_freq_time_search(x_aligned: torch.Tensor, y_aligned: torch.Tensor,
+                          fine_res, freqfound: float, freq_res: float,
+                          fs: float, td_scan_range, steeringvec=None,
+                          td_scan_freq_bounds=None):
+    """Two-pass fine frequency then sub-sample time alignment (reference
+    fineFreqTimeSearch). Positive timediff means y_aligned is LATER than
+    x_aligned. Returns (fine_freq_found, timediff, cost_vec).
+
+    As in the JAX package, x is aligned to y's tone with conj(best_shift),
+    a deliberate deviation from the literal reference (which multiplies by
+    best_shift itself, doubling the tone mismatch and biasing the sub-sample
+    delay; pydsproutines_tpu/ops/xcorr.py:667-672)."""
+    n = x_aligned.shape[-1]
+    cdt = x_aligned.dtype
+    rdt = real_dtype_for(cdt)
+    dev = x_aligned.device
+    nn = torch.arange(n, dtype=rdt, device=dev)
+    freqfound = torch.as_tensor(freqfound, dtype=rdt, device=dev)
+    fine_res = list(np.atleast_1d(fine_res)) if fine_res is not None else []
+    fine_freq_found = None
+    if fine_res:
+        conj_pre = torch.conj(torch.conj(y_aligned) * x_aligned)
+        best_shift = None
+        for res in fine_res:
+            num = int(np.ceil(2.0 * freq_res / res))
+            fine = freqfound + (torch.arange(num, dtype=rdt, device=dev)
+                                * float(res) - freq_res)
+            phase = (-2 * np.pi / fs) * fine[:, None] * nn[None, :]
+            shifts_mat = torch.polar(torch.ones_like(phase), phase).to(cdt)
+            with full_f32():
+                pp = shifts_mat @ conj_pre
+            i = int(torch.argmax(pp.abs()))
+            freqfound = fine[i]
+            best_shift = shifts_mat[i]
+        fine_freq_found = freqfound
+        x_aligned = x_aligned * torch.conj(best_shift)
+    td_scan_range = torch.as_tensor(td_scan_range, device=dev)
+    if steeringvec is None:
+        steeringvec = make_time_scan_steervec(td_scan_range, fs, n,
+                                              dtype=cdt)
+    x_fft = torch.fft.fft(x_aligned)
+    y_fft = torch.fft.fft(y_aligned)
+    rx_vec = x_fft * torch.conj(y_fft)
+    if td_scan_freq_bounds is not None:
+        fvec = make_freq(n, fs, dtype=rdt, device=dev)
+        keep = ((fvec >= td_scan_freq_bounds[0])
+                & (fvec < td_scan_freq_bounds[1]))
+        rx_vec = torch.where(keep, rx_vec, torch.zeros_like(rx_vec))
+    with full_f32():
+        cost_vec = (steeringvec.conj() @ rx_vec) / torch.linalg.norm(
+            x_fft) / torch.linalg.norm(y_fft)
+    timediff = td_scan_range[int(torch.argmax(cost_vec.abs()))]
+    return fine_freq_found, timediff, cost_vec
+
+
+class GenXcorr:
+    """Cached steering-vector fine time-offset estimator (reference
+    GenXcorr). The steering vectors live on ``device`` (``cuda`` when
+    None)."""
+
+    def __init__(self, td_scan_range, fs: float, siglen: int,
+                 dtype: torch.dtype = torch.complex64, device=None):
+        self.device = resolve_device(device)
+        self.td_scan_range = torch.as_tensor(td_scan_range).to(self.device)
+        self.fs = fs
+        self.siglen = siglen
+        self.steeringvec = make_time_scan_steervec(self.td_scan_range, fs,
+                                                   siglen, dtype)
+        self.td_scan_freq_bounds = None
+
+    def set_td_scan_freq_bounds(self, bounds):
+        self.td_scan_freq_bounds = bounds
+
+    def xcorr(self, x: torch.Tensor, y: torch.Tensor):
+        _, timediff, cost_vec = fine_freq_time_search(
+            x, y, [], 0.0, 0.0, self.fs, self.td_scan_range,
+            steeringvec=self.steeringvec,
+            td_scan_freq_bounds=self.td_scan_freq_bounds)
+        return timediff, cost_vec
+
+
+# ---------------------------------------------------------------------------
+# QF^2 / SNR conversions and accuracy bounds (Stein)
+# ---------------------------------------------------------------------------
+
+def convert_qf2_to_snr(qf2):
+    """For xcorr against a pure (noiseless) template."""
+    return qf2 / (1.0 - qf2)
+
+
+def convert_eff_snr_to_qf2(eff_snr):
+    return eff_snr / (2.0 + eff_snr)
+
+
+def expected_eff_snr(snr1, snr2=np.inf, osr: float = 1):
+    """Stein's effective SNR 1/(0.5*(1/y1 + 1/y2 + 1/(y1*y2))), scaled by
+    OSR (reference expectedEffSNR)."""
+    y = 1.0 / (0.5 * (1.0 / snr1 + 1.0 / snr2 + 1.0 / (snr1 * snr2)))
+    return y / osr
+
+
+def sigma_dto(signal_bw, noise_bw, integ_time, eff_snr):
+    """Stein DTO standard deviation."""
+    beta = np.pi / np.sqrt(3.0) * signal_bw
+    return 1.0 / beta / np.sqrt(noise_bw * integ_time * eff_snr)
+
+
+def sigma_dfo(noise_bw, integ_time, eff_snr):
+    """Stein DFO standard deviation."""
+    return 0.55 / integ_time / np.sqrt(noise_bw * integ_time * eff_snr)
+
+
+def theoretical_multi_peak(start_idx1, start_idx2, snr_linear_1=None,
+                           snr_linear_2=None):
+    """Expected xcorr peak offsets (and effective SNRs) from multiple signal
+    copies in two receivers (reference theoreticalMultiPeak); host numpy."""
+    start_idx1 = np.asarray(start_idx1)
+    start_idx2 = np.asarray(start_idx2)
+    mat = start_idx2[:, None] - start_idx1[None, :]
+    if snr_linear_1 is None and snr_linear_2 is None:
+        return np.unique(mat.flatten())
+    snr_linear_2 = np.asarray(snr_linear_2)
+    tmp = 0.5 * (1.0 / snr_linear_1 + 1.0 / snr_linear_2[:, None]
+                 + 1.0 / (snr_linear_1 * snr_linear_2[:, None]))
+    eff = np.broadcast_to(1.0 / tmp, mat.shape)
+    u, indices = np.unique(mat.flatten(), return_index=True)
+    return u, eff.flatten()[indices]
+
+
+def argmax2d(m: torch.Tensor):
+    """2-D indices of the matrix maximum (reference argmax2d)."""
+    return torch.unravel_index(torch.argmax(m), m.shape)
+
+
+def compute_fast_xcorr_complexity(n, k=1):
+    """Operation-count model of the freq-scanning sliding xcorr: K shifts,
+    one length-N FFT each (reference computeFastXcorrComplexity)."""
+    return k * n * np.log2(n)
+
+
+def compute_group_xcorr_czt_complexity(m, group_len, czt_points, k=1):
+    """Operation-count model of the CZT group xcorr: K shifts x m groups,
+    each a Bluestein CZT of two FFTs of the next fast length covering
+    group_len + czt_points (reference computeGroupXcorrCZTcomplexity)."""
+    lc = next_fast_len(int(group_len + czt_points))
+    return k * m * 2 * lc * np.log2(lc)

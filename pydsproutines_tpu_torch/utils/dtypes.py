@@ -39,6 +39,12 @@ def real_dtype_for(dtype: torch.dtype) -> torch.dtype:
     return _REAL_OF[dtype]
 
 
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype (complex64 -> np.complex64, ...),
+    for plan constants built on the host."""
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
 def to_tensor(a, device=None) -> torch.Tensor:
     """A tensor on ``device`` from a tensor or an array-like (numpy, or a
     JAX array through numpy); read-only arrays are copied first."""

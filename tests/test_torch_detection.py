@@ -114,7 +114,7 @@ def test_burst_detector_carried_from_jax(key):
     tbd = TD.BurstDetector.from_numpy_params(
         {"medfiltlen": jbd.medfiltlen, "amp_sq": np.asarray(jbd.amp_sq),
          "medfiltered": np.asarray(jbd.medfiltered),
-         "threshold": jbd.threshold})
+         "threshold": jbd.threshold}, device="cpu")
     assert tbd.threshold == 4.0 and tbd.medfiltlen == 65
     _same_edges(tbd.detect_via_threshold(4.0, capacity=16, min_length=200), je)
     with pytest.raises(ValueError, match="medfilt"):

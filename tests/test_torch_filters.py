@@ -215,7 +215,7 @@ def test_lfilter_fir_direct_and_fft_match_jax(rng):
 def test_stream_filter_block_continuity(rng):
     taps = sps.firwin(64, 0.2)
     x = _cplx(rng, 1024)
-    sf = TF.StreamFilter(_t(taps), dtype=torch.complex128)
+    sf = TF.StreamFilter(_t(taps), dtype=torch.complex128, device="cpu")
     ours = np.concatenate([sf.lfilter(_t(x[i: i + 256])).numpy()
                            for i in range(0, 1024, 256)])
     assert np.max(np.abs(ours - sps.lfilter(taps, 1.0, x))) < 1e-9
@@ -230,7 +230,8 @@ def test_stream_filter_continues_a_jax_stream(rng):
     jax_out = [np.asarray(jsf.lfilter(jnp.asarray(x[i: i + 256])))
                for i in range(0, 512, 256)]
     tsf = TF.StreamFilter.from_numpy_params(
-        {"taps": np.asarray(jsf.taps), "delay": np.asarray(jsf.delay)})
+        {"taps": np.asarray(jsf.taps), "delay": np.asarray(jsf.delay)},
+        device="cpu")
     assert tsf.dtype == torch.complex128
     port_out = [tsf.lfilter(_t(x[i: i + 256])).numpy()
                 for i in range(512, 1024, 256)]
@@ -248,7 +249,7 @@ def test_stream_upfirdn_continuity(rng):
     up, down, mem = 2, 4, 64
     x = _cplx(rng, 1024)
     su = TF.StreamUpfirdn(_t(taps), up, down, memory=mem,
-                          dtype=torch.complex128)
+                          dtype=torch.complex128, device="cpu")
     blocks = [su.resample(_t(x[i: i + 256])).numpy()
               for i in range(0, 1024, 256)]
     full = sps.upfirdn(taps, np.concatenate([np.zeros(mem), x[:256]]), up,
@@ -276,7 +277,7 @@ def test_stream_upfirdn_continues_a_jax_stream(rng):
         jsu.resample(jnp.asarray(x[i: i + 150]))
     tsu = TF.StreamUpfirdn.from_numpy_params(
         {"taps": np.asarray(jsu.taps), "up": up, "down": down, "memory": mem,
-         "delay": np.asarray(jsu.delay)})
+         "delay": np.asarray(jsu.delay)}, device="cpu")
     for i in range(300, 900, 150):
         a = tsu.resample(_t(x[i: i + 150])).numpy()
         b = np.asarray(jsu.resample(jnp.asarray(x[i: i + 150])))

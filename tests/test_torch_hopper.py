@@ -12,7 +12,11 @@ shift the top two bins can lie within f32 rounding, so only the planted
 shift's bin is held exact); upfirdn max|d|/max|ref| < 1e-5 against the twin
 in float32 (f32 FMA chains of up to a few hundred taps against a full-f32
 matrix product), 1e-9 absolute in float64, and
-``tests/test_filters.py``'s scipy bound; medfilt bit-equal (``torch.equal``).
+``tests/test_filters.py``'s scipy bound; medfilt bit-equal (``torch.equal``);
+group CAF |C|^2 per-shift peak rtol 1e-4 and the grid within 1e-4 of its
+max (f32 sums of G*m products in another order), the planted shift and bin
+exact; sliding QF^2 max|d| < 1e-5 on its 0..1 scale (f32 window energies
+summed in the kernel vs the twin's float64 window sums).
 The plain twins' matrix products run in full f32 (TF32 off).
 """
 
@@ -31,6 +35,13 @@ from pydsproutines_tpu_torch.ops.detection import (BurstDetector,
                                                    energy_detection)
 from pydsproutines_tpu_torch.ops.filters import (fir_upfirdn_planes_flat,
                                                  lfilter_fir, medfilt, upfirdn)
+from pydsproutines_tpu_torch.ops.groupxcorr import (GroupXcorrCZT,
+                                                    select_group_caf_path)
+from pydsproutines_tpu_torch.ops.hopper.group_caf import (group_caf,
+                                                          group_caf_plain)
+from pydsproutines_tpu_torch.ops.hopper.sliding import (
+    sliding_multiply_normalised, sliding_multiply_normalised_reference,
+    sliding_plain)
 from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (caf_peak,
                                                             caf_peak_plain,
                                                             split_tables)
@@ -379,3 +390,112 @@ def test_lfilter_direct_runs_the_upfirdn_kernel_in_full_f32(cuda):
     assert upfirdn_planes.launches == before + 1
     ref = sps.lfilter(taps.astype(np.float64), 1.0, x.astype(np.complex128))
     assert np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max() < 1e-6
+
+
+@pytest.mark.parametrize("g,m,k,lengths,offsets", [
+    (1, 4096, 128, None, list(range(64))),
+    (3, 1000, 100, [1000, 700, 513], list(range(0, 90, 3))),   # ragged
+    (8, 512, 37, None, [0, 1, 5, 9, 40, 41, 77, 200, 201, 399]),  # a list
+    (8, 4096, 128, None, list(range(1024))),    # the bench geometry
+    (3, 256, 64, None, [-300, -5, 0, 2, 100]),  # windows before rx: zeros
+])
+def test_group_caf_kernel_matches_twin(cuda, g, m, k, lengths, offsets):
+    rng = np.random.default_rng(g * m + k)
+    lengths = np.full(g, m) if lengths is None else np.array(lengths)
+    starts = np.arange(g) * (m + 37)
+    rxlen = offsets[-1] + int(starts[-1] + lengths[-1])
+    tf = (rng.standard_normal((g * m, k))
+          + 1j * rng.standard_normal((g * m, k))).astype(np.complex64)
+    for i, ln in enumerate(lengths):
+        tf[i * m + ln: (i + 1) * m] = 0          # short groups' padding
+    rx = (rng.standard_normal(rxlen) + 1j * rng.standard_normal(rxlen)
+          ).astype(np.complex64)
+    i_star, f_star = len(offsets) // 2, k // 3
+    for i, (s, ln) in enumerate(zip(starts, lengths)):   # C peaks there
+        o = offsets[i_star] + s
+        rx[o: o + ln] += 3 * np.conj(tf[i * m: i * m + ln, f_star])
+    args = [torch.from_numpy(a).to(cuda) for a in (rx, np.array(offsets),
+                                                   starts, tf)]
+    before = group_caf.launches
+    got = group_caf(*args, k)
+    assert group_caf.launches > before
+    ref = group_caf_plain(*args, k)
+    torch.cuda.synchronize()
+    assert got.shape == (len(offsets), k) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    gmax, rmax = got.max(1).values, ref.max(1).values
+    assert float(((gmax - rmax).abs() / rmax).max()) < 1e-4
+    assert float((got - ref).abs().max() / ref.max()) < 1e-4
+    # every bin of every shift, on its own row's scale: a fault that leaves
+    # each row's maximum alone (bins moved within a tile) shows here
+    assert float(((got - ref).abs() / rmax[:, None]).max()) < 1e-4
+    assert group_caf.splits >= 1
+    assert int(torch.argmax(gmax)) == int(torch.argmax(rmax)) == i_star
+    assert int(torch.argmax(got[i_star])) == f_star
+
+
+def test_group_xcorr_czt_routes_to_the_kernel(cuda):
+    """GroupXcorrCZT.xcorr on the card (built with no device, the
+    default): "group-caf-hopper", a launch, and the same QF^2 grid as the
+    call on CPU tensors (rtol 1e-4 of the max)."""
+    rng = np.random.default_rng(77)
+    starts, lengths = np.arange(4) * 300, np.full(4, 256)
+    span = int(starts[-1] + 256)
+    y = (rng.standard_normal(span) + 1j * rng.standard_normal(span)
+         ).astype(np.complex64)
+    rx = 0.1 * (rng.standard_normal(span + 200)
+                + 1j * rng.standard_normal(span + 200))
+    rx[50: 50 + span] += y * np.exp(2j * np.pi * 7 / 512 * np.arange(span))
+    rx = rx.astype(np.complex64)
+    grid = (-8 / 512, 8 / 512, 1 / 512, 1.0)
+    gpu = GroupXcorrCZT(y, starts, lengths, *grid)
+    cpu = GroupXcorrCZT(y, starts, lengths, *grid, device="cpu")
+    assert gpu.device == cuda
+    assert select_group_caf_path(4, 256, gpu.plan.k, torch.complex64, cuda,
+                                 True)[0] == "group-caf-hopper"
+    before = group_caf.launches
+    got, freqs = gpu.xcorr(torch.from_numpy(rx).to(cuda))
+    assert group_caf.launches == before + 1
+    ref, _ = cpu.xcorr(torch.from_numpy(rx))
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(),
+                               atol=1e-4 * float(ref.max()))
+    si, fi = np.unravel_index(int(torch.argmax(got)), got.shape)
+    assert si == 50 and abs(freqs[fi] - 7 / 512) < 1e-12
+    plain, _ = gpu.xcorr(torch.from_numpy(rx).to(cuda), fused=False)
+    assert group_caf.launches == before + 1
+    np.testing.assert_allclose(plain.cpu().numpy(), ref.numpy(),
+                               atol=1e-4 * float(ref.max()))
+
+
+@pytest.mark.parametrize("n,t,length", [
+    (100_000, 1, 1), (100_000, 1, 48), (60_000, 8, 2048), (50_000, 4, 1024),
+    (30_000, 11, 300),               # more than 8 templates: two launches
+    (2047, 2, 2047),                 # one shift
+])
+def test_sliding_kernel_matches_twin(cuda, n, t, length):
+    rng = np.random.default_rng(n + t + length)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    tm = (rng.standard_normal((t, length))
+          + 1j * rng.standard_normal((t, length))).astype(np.complex64)
+    t_star, s_star = t - 1, (n - length) // 2
+    x[s_star: s_star + length] += 4 * tm[t_star]
+    if n > 1000 + 2 * length:
+        x[1000: 1000 + length + 5] = 0
+    xt, tt = torch.from_numpy(x).to(cuda), torch.from_numpy(tm).to(cuda)
+    before = sliding_multiply_normalised.launches
+    got = sliding_multiply_normalised(xt, tt)
+    assert sliding_multiply_normalised.launches == before + 1
+    ref = sliding_plain(xt, tt)
+    torch.cuda.synchronize()
+    assert got.shape == (t, n - length + 1) and got.dtype == torch.float32
+    assert float((got - ref).abs().max()) < 1e-5
+    if length > 1:
+        ti, si = np.unravel_index(int(torch.argmax(got)), got.shape)
+        assert (ti, si) == (t_star, s_star)
+    if n > 1000 + 2 * length:                  # a window of zeros gives 0
+        assert float(got[:, 1000: 1006].abs().max()) == 0.0
+    if n * t * length <= 1 << 25:
+        truth = sliding_multiply_normalised_reference(x, tm)
+        fin = np.isfinite(truth)
+        assert np.abs(got.cpu().numpy()[fin] - truth[fin]).max() < 1e-5

@@ -13,8 +13,10 @@ import torch
 import pydsproutines_tpu_torch
 from pydsproutines_tpu_torch.ops.filters import (select_medfilt_path,
                                                  select_upfirdn_path)
+from pydsproutines_tpu_torch.ops.groupxcorr import select_group_caf_path
 from pydsproutines_tpu_torch.ops.hopper import (_build, fft_peak, fused_caf3,
-                                                fused_xcorr, medfilt, upfirdn,
+                                                fused_xcorr, group_caf,
+                                                medfilt, sliding, upfirdn,
                                                 wola_fused)
 from pydsproutines_tpu_torch.ops.wola import select_wola_path
 from pydsproutines_tpu_torch.ops.xcorr import select_xcorr_path
@@ -126,7 +128,8 @@ def test_wrappers_refuse_other_devices():
 def test_build_sources_are_the_package_csrc():
     names = [p.name for p in _build.sources()]
     assert names == ["fft_peak.cu", "fused_caf3.cu", "fused_xcorr.cu",
-                     "medfilt.cu", "upfirdn.cu", "wola_fused.cu"]
+                     "group_caf.cu", "medfilt.cu", "sliding.cu", "upfirdn.cu",
+                     "wola_fused.cu"]
     assert [p.name for p in _build.headers()] == ["cgemm.cuh"]
     text = "".join(p.read_text() for p in _build.sources() + _build.headers())
     assert "torch/extension.h" not in text
@@ -225,3 +228,102 @@ def test_filter_wrappers_check_their_inputs():
         upfirdn.upfirdn_planes((x,), torch.ones(3, dtype=torch.float64), 1, 1)
     with pytest.raises(ValueError, match="differ"):
         upfirdn.upfirdn_planes((x, x[:32]), torch.ones(3), 1, 1)
+
+
+@pytest.mark.parametrize("dtype,device,tones,fused,path,why", [
+    (torch.complex64, "cuda", True, None, "group-caf-hopper",
+     "VMEM gate (m % 128, batch % 8, 88 MB) does not apply"),
+    (torch.complex64, "cuda", True, True, "group-caf-hopper", "f32"),
+    (torch.complex64, "cuda", True, False, "plain", "parity tier"),
+    (torch.complex64, "cpu", True, None, "plain", "cpu tensor"),
+    (torch.complex128, "cuda", True, None, "plain", "complex64"),
+    (torch.complex64, "cuda", False, None, "plain", "Bluestein"),
+])
+def test_group_caf_router(dtype, device, tones, fused, path, why):
+    got, reason = select_group_caf_path(8, 4096, 128, dtype, device, tones,
+                                        fused)
+    assert got == path and why in reason, reason
+
+
+def test_new_kernel_launches_without_cuda_raise():
+    """The group CAF and sliding launch paths raise when there is no GPU;
+    they never hand the work to the plain twin."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA present: this checks the CPU-only behaviour")
+    x = torch.zeros(512, dtype=torch.complex64)
+    counters = (group_caf.group_caf, sliding.sliding_multiply_normalised)
+    before = [c.launches for c in counters]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        group_caf._group_caf_cuda(x, torch.arange(4), torch.tensor([0, 100]),
+                                  torch.zeros((2 * 64, 8), dtype=x.dtype), 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sliding._sliding_cuda(x, torch.ones((2, 16), dtype=x.dtype))
+    assert [c.launches for c in counters] == before
+
+
+def _constructors(device=None):
+    """Every class of the port that holds tensors, built on ``device``."""
+    import numpy as np
+    from pydsproutines_tpu_torch import ops
+    from pydsproutines_tpu_torch.models import WidebandReceiver
+    from pydsproutines_tpu_torch.ops.xcorr import GenXcorr
+    y = np.ones(64, np.complex64)
+    return {
+        "WidebandReceiver": lambda: WidebandReceiver(16, 128, device=device),
+        "WidebandReceiver.from_numpy_params":
+            lambda: WidebandReceiver.from_numpy_params(
+                {"f_tap": np.ones(128), "num_channels": 16,
+                 "num_taps": 128}, device=device),
+        "Channeliser": lambda: ops.Channeliser(32, 8, device=device),
+        "StreamFilter": lambda: ops.StreamFilter(np.ones(4), device=device),
+        "StreamFilter.from_numpy_params":
+            lambda: ops.StreamFilter.from_numpy_params(
+                {"taps": np.ones(4), "delay": np.zeros(4, np.complex64)}, device=device),
+        "StreamUpfirdn": lambda: ops.StreamUpfirdn(np.ones(4), 2, 3, 8,
+                                                   device=device),
+        "StreamUpfirdn.from_numpy_params":
+            lambda: ops.StreamUpfirdn.from_numpy_params(
+                {"taps": np.ones(4), "up": 2, "down": 3, "memory": 8,
+                 "delay": np.zeros(8, np.complex64)}, device=device),
+        "BurstDetector.from_numpy_params":
+            lambda: ops.BurstDetector.from_numpy_params({"medfiltlen": 5},
+                                                        device=device),
+        "CZT": lambda: ops.CZT(64, -1.0, 1.0, 0.5, 8.0, device=device),
+        "IntegerMultipleFFT": lambda: ops.IntegerMultipleFFT(2, 16, device=device),
+        "GroupXcorrCZT": lambda: ops.GroupXcorrCZT(y, [0, 32], [16, 16],
+                                                   -1.0, 1.0, 0.5, 8.0,
+                                                   device=device),
+        "GroupXcorrFFT": lambda: ops.GroupXcorrFFT(y.reshape(4, 16),
+                                                   [0, 20, 40, 60], 1.0,
+                                                   device=device),
+        "GroupXcorr": lambda: ops.GroupXcorr(y, [0, 32], [16, 16],
+                                             [0.0, 0.1], 1.0, device=device),
+        "TemplateCrossCorrelator":
+            lambda: ops.TemplateCrossCorrelator(y.reshape(2, 32), 128,
+                                                device=device),
+        "GroupXcorrCZTPermutations":
+            lambda: ops.GroupXcorrCZTPermutations(
+                y.reshape(2, 32), [0, 1], [0, 40], -0.1, 0.1, 0.05, 1.0,
+                device=device),
+        "MultiPreambleCorrelator":
+            lambda: ops.MultiPreambleCorrelator(y.reshape(2, 32), 2,
+                                                device=device),
+        "GenXcorr": lambda: GenXcorr([0.0, 0.5], 1.0, 64, device=device),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_constructors()))
+def test_constructors_default_to_cuda(monkeypatch, name):
+    """With no device every constructor targets the card: without CUDA it
+    raises (never a silent CPU run); with device="cpu" it builds on the
+    CPU."""
+    from pydsproutines_tpu_torch.utils.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _constructors()[name]()
+    _constructors("cpu")[name]()
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)

@@ -32,7 +32,7 @@ def pair(request):
     jr = JaxReceiver(**cfg)
     t_ri, rx_ri = (np.array(a) for a in jr.example_inputs())
     tr = WidebandReceiver.from_numpy_params({"f_tap": np.asarray(jr.f_tap),
-                                             **cfg})
+                                             **cfg}, device="cpu")
     return jr, tr, t_ri, rx_ri
 
 
@@ -66,7 +66,7 @@ def test_run_summary_matches_jax(pair):
 def test_example_inputs_match_jax():
     cfg = CONFIGS[0]
     j_t, j_rx = JaxReceiver(**cfg).example_inputs(seed=3)
-    t_t, t_rx = WidebandReceiver(**cfg).example_inputs(seed=3)
+    t_t, t_rx = WidebandReceiver(**cfg, device="cpu").example_inputs(seed=3)
     np.testing.assert_array_equal(t_t.numpy(), np.asarray(j_t))
     np.testing.assert_array_equal(t_rx.numpy(), np.asarray(j_rx))
 
@@ -75,4 +75,4 @@ def test_from_numpy_params_rejects_wrong_taps():
     with pytest.raises(ValueError):
         WidebandReceiver.from_numpy_params(
             {"f_tap": np.ones(100, np.float32), "num_channels": 16,
-             "num_taps": 128})
+             "num_taps": 128}, device="cpu")

@@ -70,7 +70,7 @@ def test_channeliser_streaming_matches_jax(rng, dec, n):
     x = _cplx(rng, 96 * dec * 3)
     blocks = np.split(x, [96 * dec, 96 * dec * 2])
     jc = JaxChanneliser(num_taps=taps, num_channels=n, dec=dec)
-    tc = Channeliser(num_taps=taps, num_channels=n, dec=dec)
+    tc = Channeliser(num_taps=taps, num_channels=n, dec=dec, device="cpu")
     seq = []
     for blk in blocks:
         ref = np.asarray(jc.channelise(jnp.asarray(blk)))
@@ -78,14 +78,14 @@ def test_channeliser_streaming_matches_jax(rng, dec, n):
         assert got.shape == ref.shape
         assert _rel(got, ref) < RTOL
         seq.append(got)
-    whole = Channeliser(num_taps=taps, num_channels=n,
-                        dec=dec).channelise(torch.from_numpy(x)).numpy()
+    whole = Channeliser(num_taps=taps, num_channels=n, dec=dec,
+                        device="cpu").channelise(torch.from_numpy(x)).numpy()
     assert np.max(np.abs(np.vstack(seq) - whole)) < 1e-5
 
 
 def test_channeliser_freqs_match_jax():
     jc = JaxChanneliser(num_taps=32, num_channels=8, dec=8)
-    tc = Channeliser(num_taps=32, num_channels=8, dec=8)
+    tc = Channeliser(num_taps=32, num_channels=8, dec=8, device="cpu")
     np.testing.assert_allclose(tc.channel_freqs(8000.0).numpy(),
                                np.asarray(jc.channel_freqs(8000.0)))
     assert tc.channel_fs(8000.0) == jc.channel_fs(8000.0)

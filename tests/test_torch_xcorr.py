@@ -253,3 +253,125 @@ def test_fast_xcorr_exact_when_the_last_chunk_is_short(rng):
     np.testing.assert_allclose(q.numpy(), spec.max(-1) / np.sum(
         np.abs(cc) ** 2) / rxn, rtol=QF2_RTOL)
     assert int(np.argmax(q.numpy())) == 13 and int(b[13]) == 99
+
+
+# --- the TDOA refinement chain: czt_xcorr -> fine_freq_time_search --------
+# complex128 against the JAX functions: 1e-9 (the same float64 algebra in
+# another order); the planted shift, frequency and delay exact.
+
+def _tone_scene(rng, n_cut, n_rx, start, fshift, noise=0.01):
+    cut = np.exp(0.5j * np.pi * rng.integers(0, 4, n_cut))
+    rx = noise * (rng.standard_normal(n_rx) + 1j * rng.standard_normal(n_rx))
+    rx[start: start + n_cut] += cut * np.exp(2j * np.pi * fshift
+                                             * np.arange(n_cut))
+    return cut, rx
+
+
+@pytest.mark.parametrize("output_caf", [False, True])
+def test_czt_xcorr_matches_jax(rng, output_caf):
+    cut, rx = _tone_scene(rng, 256, 1024, 300, 0.0213)
+    shifts = np.arange(295, 306)
+    args = (0.0, 0.05, 1.0, 1e-3, output_caf)
+    ref = jx.czt_xcorr(jnp.asarray(cut), jnp.asarray(rx), *args,
+                       shifts=jnp.asarray(shifts), batch_size=4)
+    got = tx.czt_xcorr(torch.from_numpy(cut), torch.from_numpy(rx), *args,
+                       shifts=shifts, batch_size=4)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]),
+                               rtol=1e-12)
+    g0, r0 = got[0].numpy(), np.asarray(ref[0])
+    assert g0.shape == r0.shape and g0.dtype == r0.dtype
+    assert np.abs(g0 - r0).max() < 1e-9
+    mag = np.abs(g0) if not output_caf else g0.max(-1)
+    assert shifts[int(np.argmax(mag))] == 300
+    if not output_caf:
+        assert abs(float(got[1][5]) - 0.0213) < 1e-3
+
+
+def test_czt_xcorr_complex64_default_shifts(rng):
+    cut, rx = _tone_scene(rng, 128, 400, 200, 0.01)
+    cut, rx = cut.astype(np.complex64), rx.astype(np.complex64)
+    ref = jx.czt_xcorr(jnp.asarray(cut), jnp.asarray(rx), -0.02, 0.02, 1.0,
+                       1e-3, True)
+    got = tx.czt_xcorr(torch.from_numpy(cut), torch.from_numpy(rx), -0.02,
+                       0.02, 1.0, 1e-3, True)
+    assert got[0].shape == (273, 41) and got[0].dtype == torch.float32
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]),
+                               atol=1e-5)
+    si, fi = np.unravel_index(int(torch.argmax(got[0])), got[0].shape)
+    assert si == 200 and abs(float(got[1][fi]) - 0.01) < 1e-3
+    with pytest.raises(ValueError, match="longer than rx"):
+        tx.czt_xcorr(torch.from_numpy(rx), torch.from_numpy(cut), 0, 1, 1.0)
+
+
+def _delayed(x, tau):
+    f = np.fft.fftfreq(x.size)
+    return np.fft.ifft(np.fft.fft(x) * np.exp(-2j * np.pi * f * tau))
+
+
+@pytest.mark.parametrize("fine_res,f_true,tau", [
+    ([], 0.0, 0.31),                       # sub-sample delay only
+    ([1e-4, 1e-5], 0.00123, 0.0),          # fine frequency, two passes
+    ([2e-4], 0.0007, 0.42),                # both
+])
+def test_fine_freq_time_search_matches_jax(rng, fine_res, f_true, tau):
+    n = 2048
+    x = np.exp(0.5j * np.pi * rng.integers(0, 4, n))
+    y = _delayed(x, tau) * np.exp(2j * np.pi * f_true * np.arange(n))
+    td = np.arange(-1.0, 1.0, 0.01)
+    args = (fine_res, 0.0, 0.005 if fine_res else 0.0, 1.0)
+    jf, jt, jc = jx.fine_freq_time_search(jnp.asarray(x), jnp.asarray(y),
+                                          *args, jnp.asarray(td))
+    tf, tt, tc = tx.fine_freq_time_search(torch.from_numpy(x),
+                                          torch.from_numpy(y), *args, td)
+    assert float(tt) == float(jt) and abs(float(tt) - tau) < 0.01 + 1e-9
+    assert np.abs(tc.numpy() - np.asarray(jc)).max() < 1e-9
+    if fine_res:
+        assert float(tf) == pytest.approx(float(jf), abs=1e-12)
+        assert abs(float(tf) - f_true) < fine_res[-1] * 2
+    else:
+        assert tf is None and jf is None
+
+
+def test_gen_xcorr_matches_jax(rng):
+    n = 1024
+    x = np.exp(0.5j * np.pi * rng.integers(0, 4, n))
+    y = _delayed(x, -0.27)
+    td = np.arange(-0.5, 0.5, 0.01)
+    jg_ = jx.GenXcorr(jnp.asarray(td), 1.0, n, dtype=jnp.complex128)
+    tg_ = tx.GenXcorr(td, 1.0, n, dtype=torch.complex128, device="cpu")
+    np.testing.assert_allclose(tg_.steeringvec.numpy(),
+                               np.asarray(jg_.steeringvec), atol=1e-12)
+    for bounds in (None, (-0.3, 0.3)):
+        jg_.set_td_scan_freq_bounds(bounds)
+        tg_.set_td_scan_freq_bounds(bounds)
+        jt, jc = jg_.xcorr(jnp.asarray(x), jnp.asarray(y))
+        tt, tc = tg_.xcorr(torch.from_numpy(x), torch.from_numpy(y))
+        assert float(tt) == float(jt) and abs(float(tt) + 0.27) < 0.01
+        assert np.abs(tc.numpy() - np.asarray(jc)).max() < 1e-9
+
+
+def test_conversions_and_bounds_match_jax():
+    for f in ("convert_qf2_to_snr", "convert_eff_snr_to_qf2"):
+        for v in (0.25, 0.5, 0.9):
+            assert getattr(tx, f)(v) == pytest.approx(
+                float(getattr(jx, f)(v)), rel=1e-15)
+    assert tx.expected_eff_snr(10.0, np.inf, 2) == pytest.approx(10.0)
+    assert tx.expected_eff_snr(3.0, 5.0) == jx.expected_eff_snr(3.0, 5.0)
+    assert tx.sigma_dto(1e3, 2e3, 1e-2, 10.0) == jx.sigma_dto(1e3, 2e3,
+                                                               1e-2, 10.0)
+    assert tx.sigma_dfo(2e3, 1e-2, 10.0) == jx.sigma_dfo(2e3, 1e-2, 10.0)
+    np.testing.assert_array_equal(tx.theoretical_multi_peak([0, 100],
+                                                            [10, 130]),
+                                  jx.theoretical_multi_peak([0, 100],
+                                                            [10, 130]))
+    for a, b in zip(tx.theoretical_multi_peak([0], [10], 1.0,
+                                              np.array([1.0])),
+                    jx.theoretical_multi_peak([0], [10], 1.0,
+                                              np.array([1.0]))):
+        np.testing.assert_array_equal(a, b)
+    i, j = tx.argmax2d(torch.arange(12).reshape(3, 4))
+    assert (int(i), int(j)) == (2, 3)
+    assert tx.compute_fast_xcorr_complexity(1024, 4) == \
+        jx.compute_fast_xcorr_complexity(1024, 4)
+    assert tx.compute_group_xcorr_czt_complexity(3, 128, 100, k=2) == \
+        jx.compute_group_xcorr_czt_complexity(3, 128, 100, k=2)
