@@ -7,9 +7,11 @@
    csrc`` (nvcc, sm_90a) and prints the build time.
 2. Checks each kernel against its plain PyTorch twin on the card at the
    main path's shapes: the WOLA channelizer at 131,072 rows x 64 channels
-   with 2048 taps; the two-stage CAF peak search at n = 1,000,000 x 128
+   with 2048 taps, and at N = Dec = 128 and 256 with 8 taps a channel (the
+   JAX ``_kernel_direct`` shapes); the CAF peak search (shared-memory FFT,
+   its plan's passes, split and scratch printed) at n = 1,000,000 x 128
    shifts and at n = 1024 x 256 shifts on a 131,072-sample channel; the
-   three-stage CAF peak search at n = 10,000,000 x 128 shifts, and at
+   shift-list CAF peak search at n = 10,000,000 x 128 shifts, and at
    shifts[0] > 0 in an rx that ends exactly at the last window; the
    last-stage peak kernel on the (128, 1000, 1000) stage-1 output of a 1M
    sweep over a sorted non-uniform list of 128 shifts, and that sweep's
@@ -53,6 +55,7 @@
    compute its function (its own algorithm's or an FFT formulation's,
    whichever is fewer; both are printed) over the f32 peak and its bytes
    (each input read once, each output written once) over the HBM rate.
+   The CAF kernels' own count is their plan's (``ops/fft.plan_flop``).
 
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -75,8 +78,8 @@ import numpy as np
 #   kernel's a direct f32 sum, so they differ by summation order only:
 #   max|d| / max|ref| < 1e-5 (the CPU parity tests' bound).
 WOLA_RTOL = 1e-5
-# - CAF peak |X|^2 per shift, kernel vs twin: the kernel's two-stage f32 DFT
-#   against f32 tables vs cuFFT; relative error of each shift's maximum
+# - CAF peak |X|^2 per shift, kernel vs twin: the kernel's shared-memory f32
+#   FFT over f32 tables vs cuFFT; relative error of each shift's maximum
 #   < 1e-4 (the QF^2 tolerance of the CPU parity tests). Peak shift and bin
 #   must be equal.
 CAF_RTOL = 1e-4
@@ -102,6 +105,9 @@ SLIDING_RTOL = 1e-5
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 
 NCH, TAPS, ROWS = 64, 2048, 131072
+# the JAX _kernel_direct shapes (N = Dec = 128, 256; 8 taps a channel), the
+# same 8,388,608 samples as the N = 64 case
+WOLA_DIRECT = ((128, 1024, 65536), (256, 2048, 32768))
 N_BIG, SHIFTS_BIG = 1_000_000, 128
 N_RX, SHIFTS_RX, CHAN_LEN = 1024, 256, 131072
 N_3, SHIFTS_3 = 10_000_000, 128          # the three-stage kernel's sweep
@@ -169,6 +175,39 @@ def bound(algorithm_flop: float, fft_form_flop: float,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_flop": flop, "algorithm_flop": algorithm_flop,
             "bound_bytes": nbytes}
+
+
+def wola_bound(rows: int, nch: int, taps: int) -> dict:
+    """WOLA (N == Dec): the direct IDFT per row, or an FFT; the fold of
+    taps/N taps either way; complex64 in and out, f32 taps."""
+    outs = rows * nch
+    return bound(outs * (8.0 * nch + 4.0 * taps / nch),
+                 rows * (4.0 * taps + fft_flop(nch)), 16 * outs + 4 * taps)
+
+
+def plan_info(launch, shifts: int) -> dict:
+    """The CAF kernels' plan at one sweep: passes, split, lines per block,
+    scratch bytes of one chunk and the plan's f32 operations."""
+    from pydsproutines_tpu_torch.ops.fft import plan_flop
+    from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (
+        SCRATCH_BYTES_PER_SAMPLE)
+    from pydsproutines_tpu_torch.utils.memory import chunk_shifts
+    nb = chunk_shifts(launch.n, shifts, SCRATCH_BYTES_PER_SAMPLE)
+    return {"passes": launch.passes, "factors": list(launch.factors),
+            "lines": list(launch.plan["lines"]),
+            "scratch_bytes": launch.scratch_bytes(nb),
+            "plan_flop": plan_flop(launch.plan) * shifts}
+
+
+def plan_keys(info: dict) -> dict:
+    return {k: info[k] for k in ("passes", "factors", "lines",
+                                 "scratch_bytes")}
+
+
+def plan_text(info: dict) -> str:
+    return (f"{info['passes']} pass(es), split "
+            f"{'x'.join(map(str, info['factors']))}, lines per block "
+            f"{info['lines']}, scratch {info['scratch_bytes']} B per chunk")
 
 
 def group_scene(rng, device):
@@ -335,14 +374,14 @@ def main() -> int:
                                                      get_upfirdn_size, medfilt,
                                                      select_medfilt_path,
                                                      select_upfirdn_path)
-    from pydsproutines_tpu_torch.ops.fft import best_two_factor, find_triple
+    from pydsproutines_tpu_torch.ops.fft import best_two_factor
     from pydsproutines_tpu_torch.ops.hopper import _build
     from pydsproutines_tpu_torch.ops.hopper.fft_peak import (
         peak_sweep, stage2_peak, stage2_peak_plain, window_stage1)
     from pydsproutines_tpu_torch.ops.hopper.fused_caf3 import (
         caf3_peak, caf3_peak_plain)
     from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (
-        caf_peak, caf_peak_plain, split_tables)
+        caf_launch, caf_peak, caf_peak_plain, split_tables)
     from pydsproutines_tpu_torch.ops.groupxcorr import select_group_caf_path
     from pydsproutines_tpu_torch.ops.hopper.group_caf import (
         _group_caf_cuda, group_caf, group_caf_plain)
@@ -397,6 +436,28 @@ def main() -> int:
     wola_plain_ms = median_ms(lambda: wola_plain(h, xw, NCH, NCH), reps=5)
     print(f"wola {ROWS}x{NCH} ch, {TAPS} taps: kernel {wola_ms:.4f} ms, "
           f"plain {wola_plain_ms:.4f} ms, rel err {wola_err:.3e} {tag}")
+    wola_direct = []
+    for nd, taps_d, rows_d in WOLA_DIRECT:
+        hd = torch.from_numpy(sps.firwin(taps_d, 1.0 / nd).astype(
+            np.float32)).to(dev)
+        xd = xw[: rows_d * nd]
+        got, ref = wola_fused(hd, xd, nd), wola_plain(hd, xd, nd, nd)
+        torch.cuda.synchronize()
+        err_d = rel_err(got, ref)
+        check(got.shape == (rows_d, nd) and err_d < WOLA_RTOL,
+              f"WOLA N={nd} kernel vs twin rel err {err_d:.3e}")
+        wola_direct.append({
+            "shape": f"{rows_d}x{nd} ch, {taps_d} taps",
+            "max_abs_err": float((got - ref).abs().max()),
+            "ms": median_ms(lambda: wola_fused(hd, xd, nd), reps=5),
+            "plain_ms": median_ms(lambda: wola_plain(hd, xd, nd, nd), reps=5),
+            **wola_bound(rows_d, nd, taps_d)})
+        print(f"wola {rows_d}x{nd} ch, {taps_d} taps: kernel "
+              f"{wola_direct[-1]['ms']:.4f} ms, plain "
+              f"{wola_direct[-1]['plain_ms']:.4f} ms, bound "
+              f"{wola_direct[-1]['bound_ms']:.4f} ms "
+              f"({wola_direct[-1]['bound_by']}), rel err {err_d:.3e} {tag}")
+        del got, ref
 
     caf = {}
     for n, nshift, s_star, f_star, rxlen in (
@@ -413,12 +474,13 @@ def main() -> int:
         p_ms = median_ms(lambda: caf_peak_plain(rx, cc, 0, 1, nshift, 128),
                          reps=reps)
         caf[n] = {"ms": k_ms, "plain_ms": p_ms, "rel_err": err,
+                  **plan_info(caf_launch(n, dev), nshift),
                   "max_abs_err": qf2_abs_err(
                       km, pm, cut, rx, torch.arange(nshift, device=dev), n),
                   "cut": cut, "rx": rx, "s_star": s_star, "f_star": f_star}
         print(f"caf n={n} x {nshift} shifts: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, per-shift rel err {err:.3e}, peak at shift "
-              f"{s_star} bin {f_star} {tag}")
+              f"{s_star} bin {f_star}; {plan_text(caf[n])} {tag}")
 
     # the three-stage kernel at 10M x 128, then at shifts[0] > 0 with rx
     # ending exactly at the last window
@@ -431,9 +493,10 @@ def main() -> int:
     abs3 = qf2_abs_err(km, pm, cut3, rx3, offs3, N_3)
     caf3_ms = median_ms(lambda: caf3_peak(rx3, cc3, offs3), reps=3)
     caf3_plain_ms = median_ms(lambda: caf3_peak_plain(rx3, cc3, offs3), reps=3)
+    plan3 = plan_info(caf_launch(N_3, dev), SHIFTS_3)
     print(f"caf3 n={N_3} x {SHIFTS_3} shifts: kernel {caf3_ms:.4f} ms, plain "
           f"{caf3_plain_ms:.4f} ms, per-shift rel err {err3:.3e}, QF^2 abs "
-          f"err {abs3:.3e} {tag}")
+          f"err {abs3:.3e}; {plan_text(plan3)} {tag}")
     edge = torch.arange(EDGE_SHIFTS, device=dev) * EDGE_STEP + EDGE_S0
     cute, rxe = listed_sweep(rng, N_3, edge.cpu().numpy(), 5, 4242, dev)
     cce = cute.conj().resolve_conj().contiguous()
@@ -841,17 +904,13 @@ def main() -> int:
 
     # each kernel's bound at the shapes timed above: its own algorithm's
     # operations, an FFT formulation's, and its bytes
-    outs_w = ROWS * NCH
-    # WOLA: the direct IDFT per row, or an FFT; the 32-tap fold either way
-    w_bound = bound(outs_w * (8.0 * NCH + 4.0 * TAPS / NCH),
-                    ROWS * (4.0 * TAPS + fft_flop(NCH)),
-                    16 * outs_w + 4 * TAPS)
+    w_bound = wola_bound(ROWS, NCH, TAPS)
     # CAF sweeps: per shift the window product (6 n), a transform, |.|^2
-    # (3 n); the kernels' DFT stages are products against tables
-    c_bound = bound(8.0 * N_BIG * sum(best_two_factor(N_BIG)) * SHIFTS_BIG,
+    # (3 n); the kernels' own count is their plan's (ops/fft.plan_flop)
+    c_bound = bound(caf[N_BIG]["plan_flop"],
                     SHIFTS_BIG * (9.0 * N_BIG + fft_flop(N_BIG)),
                     8 * (2 * N_BIG + 2 * SHIFTS_BIG - 1))
-    c3_bound = bound(8.0 * N_3 * sum(find_triple(N_3)) * SHIFTS_3,
+    c3_bound = bound(plan3["plan_flop"],
                      SHIFTS_3 * (9.0 * N_3 + fft_flop(N_3)),
                      8 * (2 * N_3 + 2 * SHIFTS_3 - 1))
     # the last stage: per row a twiddle (6 n2), an n2-point transform, |.|^2
@@ -876,18 +935,20 @@ def main() -> int:
          "replaces": "pydsproutines_tpu/ops/pallas/wola_fused.py:99",
          "shape": f"{ROWS}x{NCH} ch, {TAPS} taps",
          "launches": launches["wola_fused"], "max_abs_err": wola_abs,
-         "ms": wola_ms, "plain_ms": wola_plain_ms, **costs(w_bound, None)},
+         "ms": wola_ms, "plain_ms": wola_plain_ms, **costs(w_bound, None),
+         "direct_shapes": wola_direct},
         {"name": "caf_peak", "route": "cuda",
          "source": "pydsproutines_tpu_torch/csrc/fused_xcorr.cu",
          "replaces": "pydsproutines_tpu/ops/pallas/fused_xcorr.py:60",
          "shape": f"n={N_BIG} x {SHIFTS_BIG} shifts",
          "launches": launches["caf_peak"], "max_abs_err": big["max_abs_err"],
          "ms": big["ms"], "plain_ms": big["plain_ms"],
-         **costs(c_bound, big["plain_ms"]),
+         **costs(c_bound, big["plain_ms"]), **plan_keys(big),
          "receiver_shape": {"shape": f"n={N_RX} x {SHIFTS_RX} shifts",
                             "max_abs_err": rx_caf["max_abs_err"],
                             "ms": rx_caf["ms"],
-                            "plain_ms": rx_caf["plain_ms"]}},
+                            "plain_ms": rx_caf["plain_ms"],
+                            **plan_keys(rx_caf)}},
         {"name": "caf3_peak", "route": "cuda",
          "source": "pydsproutines_tpu_torch/csrc/fused_caf3.cu",
          "replaces": "pydsproutines_tpu/ops/pallas/fused_caf3.py:166",
@@ -895,7 +956,7 @@ def main() -> int:
          "shape": f"n={N_3} x {SHIFTS_3} shifts",
          "launches": launches["caf3_peak"], "max_abs_err": abs3,
          "ms": caf3_ms, "plain_ms": caf3_plain_ms,
-         **costs(c3_bound, caf3_plain_ms)},
+         **costs(c3_bound, caf3_plain_ms), **plan_keys(plan3)},
         {"name": "stage2_peak", "route": "cuda",
          "source": "pydsproutines_tpu_torch/csrc/fft_peak.cu",
          "replaces": "pydsproutines_tpu/ops/pallas/fft_peak.py:48",

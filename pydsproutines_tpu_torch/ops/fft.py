@@ -17,7 +17,17 @@ k = k1 + n1*k2:
 so that X[k1 + n1*k2] = sum_t2 W2[t2, k2] TW[k1, t2] sum_t1 W1[k1, t1]
 x[t1*n2 + t2].
 
-Three-factor split n = f0*f1*f2 (kernel #3), see ``caf3_tables``.
+Three-factor split n = f0*f1*f2 (kernel #4's multi-stage plans and the JAX
+package's three-stage kernel), see ``caf3_tables``.
+
+The CAF peak kernels #2 and #3 compute their DFTs as FFTs in shared memory
+(``csrc/fft_smem.cuh``). Their plan is ``caf_plan``: one pass when the
+window fits one block, else two (three where no two-factor split fits)
+passes over a device scratch, each a batch of line FFTs of length at most
+``SMEM_LINE_MAX``. Each line FFT is an in-place decimation-in-time schedule
+of the radices ``radix_plan`` picks, its input loaded in digit-reversed
+order (``digit_reversal``); ``fft_staged`` and ``caf_staged`` run that very
+schedule in torch over the tables the kernels read, for the tests.
 """
 
 from __future__ import annotations
@@ -192,6 +202,249 @@ def caf3_tables(f0: int, f1: int, f2: int) -> dict[str, np.ndarray]:
             "a1": _phase_exp(k0, np.arange(f1), f0 * f1),
             "a2": _phase_exp(k0, np.arange(f2), n),
             "tw2": _phase_exp(k1, np.arange(f2), f1 * f2)}
+
+
+# --- the shared-memory FFT plans of the CAF kernels (csrc/fft_smem.cuh) ---
+
+# Complex elements one block holds: its lines (columns or rows) of one pass
+# times their length. 8192 complex64 are 64 KB of shared memory; the kernel
+# keeps PER_THREAD of them in each of at most 512 threads' registers across
+# a radix stage.
+SMEM_LINE_MAX = 8192
+# radices with an unrolled butterfly; any other prime takes the generic one
+FAST_RADICES = (8, 4, 2, 3, 5)
+MAX_RADICES = 16
+# elements per block of a one-pass plan (several windows when they are short)
+SINGLE_BLOCK_ELEMS = 2048
+
+
+def _prime_factors(n: int) -> list[int]:
+    out, p = [], 2
+    while p * p <= n:
+        while n % p == 0:
+            out.append(p)
+            n //= p
+        p += 1
+    if n > 1:
+        out.append(n)
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def radix_plan(length: int) -> tuple[int, ...]:
+    """The radices of the kernels' line FFT of ``length`` points, in stage
+    order: 8s, then one 4 or 2 for the rest of the power of two, then 3s,
+    5s, then every other prime factor (each a generic direct radix-p
+    stage)."""
+    if length < 2:
+        raise ValueError(f"FFT length {length} < 2")
+    primes = _prime_factors(length)
+    twos = primes.count(2)
+    radices = [8] * (twos // 3) + {0: [], 1: [2], 2: [4]}[twos % 3]
+    radices += [p for p in primes if p != 2]
+    if len(radices) > MAX_RADICES:
+        raise ValueError(f"FFT length {length} has more than {MAX_RADICES} "
+                         "stages")
+    return tuple(radices)
+
+
+def _split_key(n1: int, n2: int, emax: int):
+    """Rank a column-pass split n1 x n2: strided loads of at least 8
+    adjacent columns (64-byte segments) first, then the most balanced."""
+    cols = min(emax // n1, n2)
+    return (min(cols, 8), -abs(math.log(n1 / n2)))
+
+
+def _two_split(n: int, emax: int) -> tuple[int, int] | None:
+    best, best_key = None, None
+    for n1 in range(2, min(n // 2, emax) + 1):
+        if n % n1 or n // n1 > emax:
+            continue
+        key = _split_key(n1, n // n1, emax)
+        if best_key is None or key > best_key:
+            best, best_key = (n1, n // n1), key
+    return best
+
+
+@functools.lru_cache(maxsize=64)
+def caf_plan(n: int, emax: int = SMEM_LINE_MAX) -> dict | None:
+    """The pass plan of the CAF peak kernels for an n-point window:
+    ``factors`` (f0, ..., f_{p-1}) with n = prod, one pass per factor, the
+    first p-1 passes column FFTs over a scratch (t = t0*f1*f2 + t1*f2 + t2),
+    the last a row FFT with the per-row peak; ``lines`` the columns (or
+    rows) each block of a pass transforms. The fewest passes whose lengths
+    fit ``emax``: one when n <= emax, else two (the split of ``_split_key``),
+    else three. None when no plan exists (a prime factor > emax, or no
+    three-factor split)."""
+    if n < 2:
+        return None
+    if n <= emax:
+        # one block per SINGLE_BLOCK_ELEMS-ish: several short windows per
+        # block, but enough blocks to spread a short sweep over the SMs
+        factors, lines = (n,), (max(1, SINGLE_BLOCK_ELEMS // n),)
+    else:
+        factors = _two_split(n, emax)
+        if factors is None:
+            # the smallest first factor whose rest splits in two
+            factors = next(((f0, *rest) for f0 in range(2, min(n, emax) + 1)
+                            if n % f0 == 0
+                            and (rest := _two_split(n // f0, emax))), None)
+            if factors is None:
+                return None
+        lines, cols = [], n
+        for f in factors[:-1]:
+            cols //= f
+            lines.append(min(emax // f, cols))
+        lines = (*lines, emax // factors[-1])
+    return {"factors": factors, "lines": lines,
+            "radices": tuple(radix_plan(f) for f in factors)}
+
+
+def plan_ints(plan: dict) -> list[int]:
+    """The plan as the int array the C entry points read (``read_plan`` in
+    csrc/fft_smem.cuh): [passes, f0, f1, f2, lines0, lines1, lines2, then
+    for each pass its length, its radix count and MAX_RADICES radices]."""
+    f, ln = list(plan["factors"]), list(plan["lines"])
+    out = [len(f), *(f + [0] * (3 - len(f))), *(ln + [0] * (3 - len(ln)))]
+    for i in range(3):
+        r = list(plan["radices"][i]) if i < len(f) else []
+        out += [f[i] if i < len(f) else 0, len(r),
+                *(r + [0] * (MAX_RADICES - len(r)))]
+    return out
+
+
+def digit_reversal(length: int, radices=None) -> np.ndarray:
+    """(L,) int32 slot of sample t in a decimation-in-time line FFT over
+    ``radices`` (r_0 first): t's mixed-radix digits with r_last least
+    significant, digit i weighted by r_0*...*r_{i-1}."""
+    radices = radix_plan(length) if radices is None else radices
+    t, pos = np.arange(length), np.zeros(length, dtype=np.int64)
+    weights = np.cumprod([1, *radices[:-1]])
+    for r, w in zip(reversed(radices), reversed(weights)):
+        pos += (t % r) * w
+        t //= r
+    return pos.astype(np.int32)
+
+
+def line_table(length: int, radices=None) -> np.ndarray:
+    """complex64 table of an L-point line FFT: W_L^m = exp(-2*pi*i*m/L) for
+    m < L (the generic radix's butterflies), then each radix-R stage's
+    twiddles in the order its threads read them: for P = the product of
+    the earlier radices, (R - 1) rows k = 1..R-1 of P entries W_L^(k * j *
+    L/(P*R)), j < P, so that neighbouring butterflies read neighbouring
+    entries. Every entry comes from a float64 phase reduced mod L."""
+    radices = radix_plan(length) if radices is None else radices
+    phases, ns = [np.arange(length)], 1
+    for r in radices:
+        k = np.arange(1, r)[:, None]
+        phases.append((k * np.arange(ns)[None, :]
+                       * (length // (ns * r))).ravel())
+        ns *= r
+    return _phase_exp(np.concatenate(phases), np.ones(1), length)[:, 0]
+
+
+def caf_tables(plan: dict) -> list[np.ndarray | None]:
+    """The eight tables the kernels read, in the C order: the line tables
+    of passes 0-2; the four-step twiddle of each column pass, W_M^(k*c) as
+    a (f_i, cols) matrix with M = f_i*cols (pass 0: (f0, n/f0); pass 1 of a
+    three-pass plan: (f1, f2)); the digit reversals of passes 0-2. None
+    where the plan has no such pass."""
+    f = plan["factors"]
+    out = [line_table(x, r) for x, r in zip(f, plan["radices"])]
+    out += [None] * (3 - len(f))
+    cols = int(np.prod(f))
+    for i in range(2):
+        cols //= f[i] if i < len(f) else 1
+        out.append(twiddle(f[i], cols) if i < len(f) - 1 else None)
+    out += [digit_reversal(x, r) for x, r in zip(f, plan["radices"])]
+    return out + [None] * (3 - len(f))
+
+
+def _butterfly_matrix(wl: torch.Tensor, r: int) -> torch.Tensor:
+    """(R, R) DFT matrix W_R^(a*b) read from an L-point line table."""
+    a = torch.arange(r, device=wl.device)
+    return wl[(a[:, None] * a[None, :] % r) * (wl.shape[0] // r)]
+
+
+def fft_staged(x: torch.Tensor, radices=None,
+               wl: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernels' line FFT along the last axis of complex64 x, stage by
+    stage over the f32 line table (``line_table``): x goes to its
+    digit-reversed slots (``digit_reversal``); at a radix-R stage with P =
+    the product of the earlier radices and Q = P*R, butterfly u < L/R (j =
+    u % P, b = u // P) reads slots b*Q + j + k*P, multiplies slot k by
+    W_Q^(j*k), takes an R-point DFT and writes back in place. Natural order
+    out."""
+    length = x.shape[-1]
+    radices = radix_plan(length) if radices is None else radices
+    if wl is None:
+        wl = torch.from_numpy(line_table(length, radices)).to(x.device)
+    y = torch.empty_like(x)
+    y[..., torch.from_numpy(digit_reversal(length, radices)).long()] = x
+    p, off = 1, length
+    for r in radices:
+        u = torch.arange(length // r, device=x.device)
+        j, k = u % p, torch.arange(r, device=x.device)
+        slots = ((u // p) * p * r + j)[:, None] + k[None, :] * p   # (L/R, R)
+        stage = torch.cat([torch.ones(1, p, dtype=wl.dtype, device=wl.device),
+                           wl[off: off + (r - 1) * p].reshape(r - 1, p)])
+        y[..., slots] = (y[..., slots] * stage[:, j].T) @ _butterfly_matrix(
+            wl[:length], r)
+        p, off = p * r, off + (r - 1) * p
+    return y
+
+
+def caf_staged(rx: torch.Tensor, cutout_conj: torch.Tensor,
+               offsets: torch.Tensor, plan: dict | None = None):
+    """The CAF kernels' pass schedule in torch over their tables: per shift
+    s, the modulated window p[t] = rx[s + t] * cc[t] viewed as (f0, ..., f_
+    last); each column pass an f_i-point ``fft_staged`` along its axis and
+    the twiddle hi*lo of W_M^(k_i * c) (c the column, M the pass's
+    modulus); the last pass a row FFT, |X|^2 and each row's peak; the
+    reduction ``peak_winner``. Returns (peak |X|^2 as float32, int64 bin)
+    per offset."""
+    n = cutout_conj.shape[-1]
+    plan = plan or caf_plan(n)
+    f = plan["factors"]
+    tabs = [None if t is None else torch.from_numpy(t).to(rx.device)
+            for t in caf_tables(plan)]
+    idx = offsets[:, None] + torch.arange(n, device=rx.device)[None, :]
+    x = (rx[idx] * cutout_conj).reshape(offsets.shape[0], 1, f[0], -1)
+    for i in range(len(f) - 1):
+        # x: (shifts, rows, f_i, cols) -> column FFT along f_i, twiddle
+        x = fft_staged(x.transpose(-1, -2), plan["radices"][i],
+                       tabs[i]).transpose(-1, -2) * tabs[3 + i]
+        cols = x.shape[-1]
+        if i + 1 < len(f) - 1:
+            x = x.reshape(x.shape[0], -1, f[i + 1], cols // f[i + 1])
+    x = fft_staged(x.reshape(offsets.shape[0], -1, f[-1]), plan["radices"][-1],
+                   tabs[len(f) - 1])
+    mag = x.real * x.real + x.imag * x.imag
+    rowarg = torch.argmax(mag, dim=-1)
+    rowmax = torch.gather(mag, -1, rowarg[..., None])[..., 0]
+    return peak_winner(rowmax, rowarg, f)
+
+
+def _butterfly_flop(r: int) -> int:
+    """f32 operations of one radix-r butterfly of csrc/fft_smem.cuh, its
+    r - 1 twiddle products (6 each) included; a generic radix does r^2
+    complex multiply-adds."""
+    fixed = {2: 4, 3: 16, 4: 16, 5: 48, 8: 56}
+    return fixed[r] + 6 * (r - 1) if r in fixed else 8 * r * r
+
+
+def plan_flop(plan: dict) -> float:
+    """f32 operations the CAF kernels do per shift under ``plan``: the
+    window product (6 per sample), every line FFT's butterflies, each
+    column pass's twiddle (6 per sample), |X|^2 and the row peak (3 per
+    sample)."""
+    f = plan["factors"]
+    n = int(np.prod(f))
+    ops = 6.0 * n + 3.0 * n + 6.0 * n * (len(f) - 1)
+    for length, radices in zip(f, plan["radices"]):
+        ops += (n // length) * sum(length // r * _butterfly_flop(r)
+                                   for r in radices)
+    return ops
 
 
 def true_bins(rowarg: torch.Tensor, factors) -> torch.Tensor:

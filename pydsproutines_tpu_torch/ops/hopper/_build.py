@@ -39,10 +39,10 @@ _L = ctypes.c_longlong
 # C signature of every entry point: (argtypes, restype)
 _SIGNATURES = {
     "pdsp_wola_fused": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "pdsp_caf_peak": ([_P] * 10 + [_I] * 5 + [_P], _I),
+    "pdsp_caf_peak": ([_P] * 9 + [_L, _I, _I, _P], _I),
     "pdsp_stage2_peak": ([_P] * 7 + [_I] * 4 + [_P, _I, _P], _I),
     "pdsp_window_stage1": ([_P] * 5 + [_I] * 3 + [_P], _I),
-    "pdsp_caf3_peak": ([_P] * 15 + [_I] * 4 + [_P], _I),
+    "pdsp_caf3_peak": ([_P] * 10 + [_I, _P], _I),
     "pdsp_upfirdn_f32": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_P] + [_I] * 3
                          + [_P], _I),
     "pdsp_upfirdn_f64": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_P] + [_I] * 3

@@ -1,29 +1,32 @@
-"""Three-stage CAF peak search (TPU kernel #3) and its plain PyTorch twin.
+"""CAF peak search over a shift list (TPU kernel #3) and its plain twin.
 
 Kernel: ``csrc/fused_caf3.cu``, hand-written CUDA C++ for Hopper (sm_90a). It
 replaces ``pydsproutines_tpu/ops/pallas/fused_caf3.py:_stage1_kernel`` and
 ``_stage23_kernel``. For each shift s of an int64 offset list it returns
-``max_k |X_s[k]|^2`` and its true bin k = k0 + f0*(k1 + f1*k2), with
-``X_s = DFT_n(rx[s:s+n] * conj(cutout))`` computed in the kernel as a
-three-stage split n = f0*f1*f2 (``ops/fft.find_triple``) against f32 tables
-(``ops/fft.caf3_tables``). It is bound by f32 arithmetic: n*(f0 + f1 + f2)
-complex MACs per shift, 6.5e9 at n = 10M, against 8.9e9 for the TPU's
-lane-exact triple and 6.3e10 for the two-factor kernel #2.
+``max_k |X_s[k]|^2`` and its true bin, with ``X_s = DFT_n(rx[s:s+n] *
+conj(cutout))`` computed as an FFT in shared memory (``csrc/fft_smem.cuh``)
+under ``ops/fft.caf_plan``: the fewest passes whose FFT lengths fit a
+block, two at n = 10M = 1250 x 8000 (a column pass, a row pass with each
+row's peak, a reduction), three only where no two-factor split fits. It is
+bound by bytes: 32 bytes per (shift, sample) of window, template and one
+scratch round trip, against the n*(f0 + f1 + f2) complex MACs of the dense
+three-stage products it replaced.
 
 The kernel reads rx only inside each window, so a sweep whose last window
 ends at the end of rx needs no padding (the JAX route's padding fault,
-``pydsproutines_tpu/ops/xcorr.py:362``, has no counterpart). Its two
-complex64 scratch buffers take 16 bytes per (shift, sample), 160 MB per
-shift at 10M, so shifts run in chunks within the byte budget
-(``utils.memory``).
+``pydsproutines_tpu/ops/xcorr.py:362``, has no counterpart). Its complex64
+scratch takes 8 bytes per (shift, sample), 80 MB per shift at 10M, so
+shifts run in chunks within the byte budget (``utils.memory``).
 
 Ties go to the lowest true bin, as ``torch.argmax`` on the natural-order
 spectrum does (the TPU kernels take the first in their permuted order).
 
 ``caf3_peak`` routes by the tensor's device: a CPU tensor takes the plain
 twin ``caf3_peak_plain`` (``torch.fft``); a CUDA tensor launches the kernel
-or raises. ``caf3_staged`` is the three-stage algebra in torch over the
-very tables the kernel reads, for the tests.
+or raises. ``ops/fft.caf_staged`` is the kernel's pass schedule in torch;
+``caf3_staged`` is the JAX kernels' three-stage algebra over the tables of
+``ops/fft.caf3_tables`` (``find_triple``), which the tests hold against the
+TPU kernels.
 """
 
 from __future__ import annotations
@@ -37,10 +40,9 @@ from pydsproutines_tpu_torch.ops.fft import (caf3_tables, find_triple,
 from pydsproutines_tpu_torch.ops.hopper import _build
 from pydsproutines_tpu_torch.ops.hopper.fft_peak import (check_offsets,
                                                          require_c64)
+from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (
+    SCRATCH_BYTES_PER_SAMPLE, caf_launch)
 from pydsproutines_tpu_torch.utils.memory import chunk_shifts
-
-# kernel scratch per (shift, sample): two complex64 stage outputs
-SCRATCH_BYTES_PER_SAMPLE = 16
 
 
 def caf3_peak_plain(rx: torch.Tensor, cutout_conj: torch.Tensor,
@@ -70,9 +72,10 @@ def _triple(n: int) -> tuple[int, int, int]:
 
 def caf3_staged(rx: torch.Tensor, cutout_conj: torch.Tensor,
                 offsets: torch.Tensor, triple=None):
-    """The kernel's three-stage algebra in torch einsums over the same
-    complex64 tables: (peak |X|^2 as float32, int64 true bin) per offset.
-    For tests at small n; it holds every (shift, n) intermediate at once."""
+    """The JAX kernels' three-stage algebra (``find_triple``) in torch
+    einsums over the complex64 tables of ``caf3_tables``: (peak |X|^2 as
+    float32, int64 true bin) per offset. For tests at small n; it holds
+    every (shift, n) intermediate at once."""
     n = cutout_conj.shape[-1]
     check_offsets(rx, offsets, n)
     f0, f1, f2 = triple or _triple(n)
@@ -112,16 +115,12 @@ caf3_peak.launches = 0
 def _caf3_peak_cuda(rx, cutout_conj, offsets, batch):
     lib = _build.library()
     n = cutout_conj.shape[-1]
-    f0, f1, f2 = _triple(n)
     require_c64(rx, cutout_conj)
     dev = rx.device
-    t = _tables((f0, f1, f2), dev)
+    launch = caf_launch(n, dev)
     num = offsets.shape[0]
     nb_max = chunk_shifts(n, min(batch, num), SCRATCH_BYTES_PER_SAMPLE)
-    s1 = torch.empty((nb_max, n), dtype=torch.complex64, device=dev)
-    s2 = torch.empty((nb_max, n), dtype=torch.complex64, device=dev)
-    rowmax = torch.empty(nb_max * f0 * f1, dtype=torch.float32, device=dev)
-    rowarg = torch.empty(nb_max * f0 * f1, dtype=torch.int32, device=dev)
+    scratch, rowmax, rowarg = launch.buffers(nb_max, dev)
     out_max = torch.empty(num, dtype=torch.float32, device=dev)
     out_bin = torch.empty(num, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -130,12 +129,9 @@ def _caf3_peak_cuda(rx, cutout_conj, offsets, batch):
             nb = min(nb_max, num - c0)
             rc = lib.pdsp_caf3_peak(
                 rx.data_ptr(), cutout_conj.data_ptr(),
-                offsets[c0:].data_ptr(), t["w0"].data_ptr(),
-                t["a1"].data_ptr(), t["a2"].data_ptr(), t["w1"].data_ptr(),
-                t["tw2"].data_ptr(), t["w2"].data_ptr(), s1.data_ptr(),
-                s2.data_ptr(), rowmax.data_ptr(), rowarg.data_ptr(),
-                out_max[c0:].data_ptr(), out_bin[c0:].data_ptr(), nb, f0, f1,
-                f2, stream)
+                offsets[c0:].data_ptr(), *launch.args(), scratch.data_ptr(),
+                rowmax.data_ptr(), rowarg.data_ptr(),
+                out_max[c0:].data_ptr(), out_bin[c0:].data_ptr(), nb, stream)
             _build.check(rc, f"caf3_peak launch (n={n}, chunk at {c0})")
             caf3_peak.launches += 1
     return out_max, out_bin.long()

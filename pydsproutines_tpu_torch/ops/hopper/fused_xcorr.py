@@ -3,30 +3,37 @@
 Kernel: ``csrc/fused_xcorr.cu``, hand-written CUDA C++ for Hopper (sm_90a). It
 replaces ``pydsproutines_tpu/ops/pallas/fused_xcorr.py:_caf_kernel``. For each
 shift s = s0 + i*step it returns ``max_k |X_s[k]|^2`` and its bin, with
-``X_s = DFT_n(rx[s:s+n] * conj(cutout))``. The DFT is computed in the kernel
-as a two-stage split n = n1*n2 (``ops/fft.best_two_factor``) against f32
-tables (``ops/fft.dft_matrix`` / ``twiddle``); no FFT or BLAS library is
-involved. It is bound by f32 arithmetic: n*(n1 + n2) complex MACs per shift.
+``X_s = DFT_n(rx[s:s+n] * conj(cutout))``. The DFT is an FFT the kernel runs
+in shared memory (``csrc/fft_smem.cuh``) under ``ops/fft.caf_plan``: one pass
+for n <= 8192, else a column pass and a row pass over a complex64 scratch
+(n = n1*n2, four-step), twiddles from f32 tables (``ops/fft.caf_tables``);
+no FFT or BLAS library is involved. It is bound by bytes: the window, the
+template and one scratch round trip per shift.
 
 Ties go to the lowest bin, as ``torch.argmax`` over the natural-order
 spectrum does, so the kernel and the twin agree even on exact ties.
 
 ``caf_peak`` routes by the tensor's device: a CPU tensor takes the plain twin
 ``caf_peak_plain``; a CUDA tensor launches the kernel or raises. QF^2
-normalisation is the caller's (``ops/xcorr``).
+normalisation is the caller's (``ops/xcorr``). ``ops/fft.caf_staged`` is the
+kernel's pass schedule in torch, for the tests.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-from pydsproutines_tpu_torch.ops.fft import best_two_factor, dft_matrix, twiddle
+from pydsproutines_tpu_torch.ops.fft import (caf_plan, caf_tables, dft_matrix,
+                                             plan_ints, twiddle)
 from pydsproutines_tpu_torch.ops.hopper import _build
 from pydsproutines_tpu_torch.utils.memory import chunk_shifts
 
-# kernel scratch per (shift, sample): the (n1, n2) complex64 stage-1 output
+# kernel scratch per (shift, sample) of a plan of two or more passes: one
+# complex64 buffer, the column passes writing it in place (a one-pass plan
+# has none)
 SCRATCH_BYTES_PER_SAMPLE = 8
 
 
@@ -76,17 +83,64 @@ caf_peak.launches = 0
 
 @functools.lru_cache(maxsize=4)
 def split_tables(n1: int, n2: int, device: torch.device):
-    """Device copies of (W1, TW, W2) for the split n = n1*n2."""
+    """Device copies of (W1, TW, W2) for the split n = n1*n2 (the dense
+    stage-1 tables of ``ops/hopper/fft_peak``)."""
     return tuple(torch.from_numpy(t).to(device)
                  for t in (dft_matrix(n1), twiddle(n1, n2), dft_matrix(n2)))
+
+
+class CafLaunch:
+    """What a launch of the CAF kernels (#2, #3) needs for an n-point
+    window on one device: the plan, its device tables, and the two host
+    arrays the C entry points read (the five table pointers, the plan's
+    ints)."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.plan = caf_plan(n)
+        if self.plan is None:
+            raise ValueError(f"n={n} has no shared-memory FFT plan for the "
+                             "CAF kernels")
+        self.n = n
+        self.factors = self.plan["factors"]
+        self.tables = [None if t is None else torch.from_numpy(t).to(device)
+                       for t in caf_tables(self.plan)]
+        self.table_ptrs = (ctypes.c_void_p * len(self.tables))(
+            *[0 if t is None else t.data_ptr() for t in self.tables])
+        ints = plan_ints(self.plan)
+        self.plan_ints = (ctypes.c_int * len(ints))(*ints)
+
+    @property
+    def passes(self) -> int:
+        return len(self.factors)
+
+    def buffers(self, nb: int, device: torch.device):
+        """(scratch, rowmax, rowarg) for chunks of nb shifts; empty for a
+        one-pass plan."""
+        multi = self.passes > 1
+        rows = self.n // self.factors[-1] if multi else 0
+        return (torch.empty(nb * self.n if multi else 0, dtype=torch.complex64,
+                            device=device),
+                torch.empty(nb * rows, dtype=torch.float32, device=device),
+                torch.empty(nb * rows, dtype=torch.int32, device=device))
+
+    def scratch_bytes(self, nb: int) -> int:
+        return nb * self.n * SCRATCH_BYTES_PER_SAMPLE if self.passes > 1 \
+            else 0
+
+    def args(self):
+        """The (tables, plan) pointer pair of the C entry points."""
+        return ctypes.addressof(self.table_ptrs), \
+            ctypes.addressof(self.plan_ints)
+
+
+@functools.lru_cache(maxsize=8)
+def caf_launch(n: int, device: torch.device) -> CafLaunch:
+    return CafLaunch(n, device)
 
 
 def _caf_peak_cuda(rx, cutout_conj, s0, step, num_shifts, batch):
     lib = _build.library()
     n = cutout_conj.shape[-1]
-    split = best_two_factor(n)
-    if split is None:
-        raise ValueError(f"n={n} has no two-factor split for the CAF kernel")
     if rx.dtype != torch.complex64 or cutout_conj.dtype != torch.complex64:
         raise ValueError("the CAF kernel takes complex64 "
                          f"(got {rx.dtype}, {cutout_conj.dtype})")
@@ -94,13 +148,10 @@ def _caf_peak_cuda(rx, cutout_conj, s0, step, num_shifts, batch):
         raise ValueError("the CAF kernel takes contiguous tensors")
     if rx.shape[-1] >= 2**31:
         raise ValueError("rx too long for 32-bit sample indexing")
-    n1, n2 = split
     dev = rx.device
-    w1, tw, w2 = split_tables(n1, n2, dev)
+    launch = caf_launch(n, dev)
     nb_max = chunk_shifts(n, min(batch, num_shifts), SCRATCH_BYTES_PER_SAMPLE)
-    scratch = torch.empty((nb_max, n1, n2), dtype=torch.complex64, device=dev)
-    rowmax = torch.empty((nb_max, n1), dtype=torch.float32, device=dev)
-    rowarg = torch.empty((nb_max, n1), dtype=torch.int32, device=dev)
+    scratch, rowmax, rowarg = launch.buffers(nb_max, dev)
     out_max = torch.empty(num_shifts, dtype=torch.float32, device=dev)
     out_bin = torch.empty(num_shifts, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -108,11 +159,10 @@ def _caf_peak_cuda(rx, cutout_conj, s0, step, num_shifts, batch):
         for c0 in range(0, num_shifts, nb_max):
             nb = min(nb_max, num_shifts - c0)
             rc = lib.pdsp_caf_peak(
-                rx.data_ptr(), cutout_conj.data_ptr(), w1.data_ptr(),
-                tw.data_ptr(), w2.data_ptr(), scratch.data_ptr(),
-                rowmax.data_ptr(), rowarg.data_ptr(),
+                rx.data_ptr(), cutout_conj.data_ptr(), *launch.args(),
+                scratch.data_ptr(), rowmax.data_ptr(), rowarg.data_ptr(),
                 out_max[c0:].data_ptr(), out_bin[c0:].data_ptr(),
-                s0 + c0 * step, step, nb, n1, n2, stream)
+                s0 + c0 * step, step, nb, stream)
             _build.check(rc, f"caf_peak launch (n={n}, chunk at {c0})")
             caf_peak.launches += 1
     return out_max, out_bin.long()

@@ -17,12 +17,13 @@ with the JAX signature, defaults and modes:
   "dot"                 no frequency search: plain torch sliding dot
                         products (the TPU ran no kernel here either);
   "caf"                 full CAF output: plain torch.fft, no peak fusion;
-  "fused3-hopper"       the three-stage Hopper CAF kernel
+  "fused3-hopper"       the Hopper CAF kernel over a shift list
                         (ops/hopper/fused_caf3.py) for n >= 2^21 with a
-                        factor triple, uniform shifts or a shift list;
-  "fused-hopper"        the two-stage Hopper CAF kernel
-                        (ops/hopper/fused_xcorr.py) for a uniform sweep of
-                        any other n with a two-factor split;
+                        factor triple (the JAX "fused3" gate), uniform
+                        shifts or a list;
+  "fused-hopper"        the Hopper CAF kernel over a uniform sweep
+                        (ops/hopper/fused_xcorr.py) for any other n with a
+                        two-factor split;
   "peak-kernel-hopper"  a shift list over a two-factor split: stage 1 read
                         through the per-shift offsets, then the Hopper
                         last-stage peak kernel (ops/hopper/fft_peak.py);
@@ -49,8 +50,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pydsproutines_tpu_torch.ops.fft import (best_two_factor, fft_factors,
-                                             find_triple)
+from pydsproutines_tpu_torch.ops.fft import (best_two_factor, caf_plan,
+                                             fft_factors, find_triple)
 from pydsproutines_tpu_torch.ops.hopper.fft_peak import peak_sweep
 from pydsproutines_tpu_torch.ops.hopper.fused_caf3 import caf3_peak
 from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import caf_peak
@@ -115,6 +116,15 @@ def _uniform_step(shifts) -> int | None:
     return None
 
 
+def _fft_passes(n: int) -> str:
+    """How the CAF kernels' shared-memory FFT runs an n-point window."""
+    f = caf_plan(n)["factors"]
+    if len(f) == 1:
+        return f"one-pass shared-memory FFT of n={n} per block"
+    return (f"shared-memory FFT in {len(f)} passes of "
+            f"{'x'.join(map(str, f))} over a scratch")
+
+
 def select_xcorr_path(n: int, dtype: torch.dtype, step: int | None,
                       device, freqsearch: bool = True,
                       output_caf: bool = False,
@@ -142,17 +152,17 @@ def select_xcorr_path(n: int, dtype: torch.dtype, step: int | None,
         if triple is not None:
             f0, f1, f2 = triple
             return "fused3-hopper", (
-                f"{sweep}, n={n}={f0}x{f1}x{f2} >= 2^21: three-stage Hopper "
-                f"CAF kernel, {f32}; factors in [16, 1024] with no TPU lane "
-                f"rule (f2 % 128), minimising f0+f1+f2")
+                f"{sweep}, n={n}={f0}x{f1}x{f2} >= 2^21 (the JAX three-stage "
+                f"gate, factors in [16, 1024] with no TPU lane rule): Hopper "
+                f"CAF kernel over the shift offsets, {_fft_passes(n)}, {f32}")
         note = f"; n={n} has no factor triple in [16, 1024]"
     split = best_two_factor(n)
     if split is None:
         return "plain", f"n={n} has no two-factor split{note}"
     n1, n2 = split
     if step is not None:
-        reason = (f"{sweep}, n={n}={n1}x{n2}: Hopper CAF kernel, {f32}"
-                  f"{note}")
+        reason = (f"{sweep}, n={n}: Hopper CAF kernel, {_fft_passes(n)}, "
+                  f"{f32}{note}")
         if n < 4096:
             reason += (f"; the TPU kernel's n >= 4096 VMEM gate does not "
                        f"apply, so this n={n} sweep runs the kernel")

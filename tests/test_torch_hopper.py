@@ -86,6 +86,9 @@ def test_wola_kernel_matches_twin(cuda, n, taps, rows):
 @pytest.mark.parametrize("n,step,nshifts,batch", [
     (1024, 1, 256, 128), (4096, 3, 40, 16), (1000, 1, 33, 8),
     (65536, 2, 12, 12),
+    (8192, 1, 20, 8), (512, 1, 301, 128),    # one pass, 1 and 4 per block
+    (3**13, 2, 6, 6), (1_000_000, 1, 8, 8),  # radices 3; 8 and 5
+    (2 * 4099, 1, 10, 10),                   # a generic radix (4099)
 ])
 def test_caf_kernel_matches_twin(cuda, n, step, nshifts, batch):
     rng = np.random.default_rng(n + step)
@@ -103,6 +106,28 @@ def test_caf_kernel_matches_twin(cuda, n, step, nshifts, batch):
     assert float(((km - pm).abs() / pm).max()) < 1e-4
     assert int(torch.argmax(km)) == int(torch.argmax(pm)) == 3
     assert int(kb[3]) == int(pb[3]) == f_star
+
+
+@pytest.mark.parametrize("n", [1024, 65536, 97 * 101 * 103])
+def test_caf_peak_ties_go_to_the_lowest_bin(cuda, n):
+    """Flat spectra. A zero rx: every bin of every shift ties, and both
+    versions return bin 0. An impulse at the first sample of the first
+    window: every |X[k]|^2 is exactly 1 in the kernels' arithmetic (each
+    stage multiplies it by W^0 = 1 and adds zeros), so bin 0 wins; the
+    twin's library FFT is flat only to f32 rounding there, so it is not
+    compared."""
+    rx = torch.zeros(n + 4, dtype=torch.complex64, device=cuda)
+    cc = torch.ones(n, dtype=torch.complex64, device=cuda)
+    km, kb = caf_peak(rx, cc, 0, 1, 5)
+    pm, pb = caf_peak_plain(rx, cc, 0, 1, 5)
+    torch.cuda.synchronize()
+    assert kb.tolist() == pb.tolist() == [0] * 5
+    assert km.tolist() == pm.tolist() == [0.0] * 5
+    rx[0] = 1.0
+    for km, kb in (caf_peak(rx, cc, 0, 1, 1),
+                   caf3_peak(rx, cc, torch.zeros(1, dtype=torch.int64,
+                                                 device=cuda))):
+        assert float(km[0]) == 1.0 and int(kb[0]) == 0
 
 
 def _planted(rng, n, rxlen, s_star, f_star):
@@ -127,7 +152,12 @@ def _hold(km, kb, pm, pb, i_star, f_star):
     (5**9, list(range(0, 27, 3)), 2),                # 125^3, odd step
     (5**10, list(range(1000, 1004)), 0),             # shifts[0] > 0, rx ends
     (2**21, [0, 3, 4, 9, 40, 41], 0),                # at the last window;
-])                                                   # a shift list
+    (10_000_000, [0, 7, 9], 0),                      # a shift list; 10M
+    (3**13, [0, 2, 5, 6], 1),                        # 729 x 2187
+    (8192, [3, 4, 9], 0),                            # one pass
+    (2 * 4099, [0, 1, 4], 0),                        # generic radix 4099
+    (97 * 101 * 103, [0, 5, 6], 0),                  # three passes
+])
 def test_caf3_kernel_matches_twin(cuda, n, offsets, rx_tail):
     rng = np.random.default_rng(n % 1000 + len(offsets))
     i_star, f_star = len(offsets) // 2, n // 7

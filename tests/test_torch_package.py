@@ -130,7 +130,8 @@ def test_build_sources_are_the_package_csrc():
     assert names == ["fft_peak.cu", "fused_caf3.cu", "fused_xcorr.cu",
                      "group_caf.cu", "medfilt.cu", "sliding.cu", "upfirdn.cu",
                      "wola_fused.cu"]
-    assert [p.name for p in _build.headers()] == ["cgemm.cuh"]
+    assert [p.name for p in _build.headers()] == ["cgemm.cuh",
+                                                  "fft_smem.cuh"]
     text = "".join(p.read_text() for p in _build.sources() + _build.headers())
     assert "torch/extension.h" not in text
     assert "cufft" not in text.lower() and "cublas" not in text.lower()
