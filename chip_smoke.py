@@ -13,8 +13,11 @@
    shifts and at n = 1024 x 256 shifts on a 131,072-sample channel; the
    shift-list CAF peak search at n = 10,000,000 x 128 shifts, and at
    shifts[0] > 0 in an rx that ends exactly at the last window; the
-   last-stage peak kernel on the (128, 1000, 1000) stage-1 output of a 1M
-   sweep over a sorted non-uniform list of 128 shifts, and that sweep's
+   last-stage peak kernel (twiddle on load, 1000-point row FFTs in shared
+   memory) on the (128, 1000, 1000) stage-1 output of a 1M sweep over a
+   sorted non-uniform list of 128 shifts (the column pass of that route,
+   stored without its twiddle), against its twin, ``torch.matmul`` by the
+   DFT matrix and ``torch.fft.fft`` of the twiddled rows, and that sweep's
    route against torch.fft; upfirdn through ``fir_upfirdn_planes_flat`` at
    the JAX bench's chain (4,194,304 complex samples, 128 FIR and 95
    resampler taps, up 5, down 4: 730 combined taps), and the median filter
@@ -22,7 +25,9 @@
    scipy at a reduced size; the group CAF at the JAX bench's group-xcorr
    cell (8 groups of 4096 samples every 16,384, 128 CZT bins of fs/16384,
    1024 shifts of an rx of 119,872 samples, a copy planted at shift 517 and
-   bin 70), on the uniform sweep and on a sorted list of 128 of its shifts;
+   bin 70), on the uniform sweep and on a sorted list of 128 of its shifts
+   (a 3xTF32 product on the tensor cores, wgmma, over the tone bank split
+   at plan build);
    the sliding normalised matched filter at 4,194,304 samples x 4 templates
    of 1024 with one template planted, and against numpy at a reduced size.
 3. Drives the main path through the public entry points, with every kernel's
@@ -55,7 +60,9 @@
    compute its function (its own algorithm's or an FFT formulation's,
    whichever is fewer; both are printed) over the f32 peak and its bytes
    (each input read once, each output written once) over the HBM rate.
-   The CAF kernels' own count is their plan's (``ops/fft.plan_flop``).
+   The CAF kernels' own count is their plan's (``ops/fft.plan_flop``; for
+   the last-stage peak kernel its row plan's); the group CAF's is the f32
+   count of its product, which it runs as three TF32 passes.
 
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed phase
@@ -374,14 +381,16 @@ def main() -> int:
                                                      get_upfirdn_size, medfilt,
                                                      select_medfilt_path,
                                                      select_upfirdn_path)
-    from pydsproutines_tpu_torch.ops.fft import best_two_factor
+    from pydsproutines_tpu_torch.ops.fft import (dft_matrix, plan_flop,
+                                                 row_plan, twiddle)
     from pydsproutines_tpu_torch.ops.hopper import _build
     from pydsproutines_tpu_torch.ops.hopper.fft_peak import (
-        peak_sweep, stage2_peak, stage2_peak_plain, window_stage1)
+        peak_sweep, stage2_peak, stage2_peak_plain, sweep_plan,
+        window_columns)
     from pydsproutines_tpu_torch.ops.hopper.fused_caf3 import (
         caf3_peak, caf3_peak_plain)
     from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (
-        caf_launch, caf_peak, caf_peak_plain, split_tables)
+        caf_launch, caf_peak, caf_peak_plain)
     from pydsproutines_tpu_torch.ops.groupxcorr import select_group_caf_path
     from pydsproutines_tpu_torch.ops.hopper.group_caf import (
         _group_caf_cuda, group_caf, group_caf_plain)
@@ -514,19 +523,23 @@ def main() -> int:
         SPAN_4, SHIFTS_4, replace=False))).to(dev)
     cut4, rx4 = listed_sweep(rng, N_4, offs4.cpu().numpy(), 77, 54321, dev)
     cc4 = cut4.conj().resolve_conj().contiguous()
-    n1, n2 = best_two_factor(N_4)
-    w1, tw4, w24 = split_tables(n1, n2, dev)
-    f1 = window_stage1(rx4, cc4, w1, offs4, n1, n2)
-    km, kb = stage2_peak(f1, tw4, w24)
-    pm, pb = stage2_peak_plain(f1, tw4, w24)
+    plan4 = sweep_plan(N_4)
+    n1, n2 = plan4["factors"]
+    tw4 = torch.from_numpy(twiddle(n1, n2)).to(dev)
+    f1 = window_columns(rx4, cc4, offs4)
+    km, kb = stage2_peak(f1, tw4)
+    pm, pb = stage2_peak_plain(f1, tw4)
     err4 = hold_peaks(f"stage2_peak ({SHIFTS_4}, {n1}, {n2})", km, kb, pm, pb,
                       77, 54321)
     abs4 = qf2_abs_err(km, pm, cut4, rx4, offs4, N_4)
-    s2_ms = median_ms(lambda: stage2_peak(f1, tw4, w24), reps=3)
-    s2_plain_ms = median_ms(lambda: stage2_peak_plain(f1, tw4, w24), reps=3)
+    s2_ms = median_ms(lambda: stage2_peak(f1, tw4), reps=5)
+    s2_plain_ms = median_ms(lambda: stage2_peak_plain(f1, tw4), reps=3)
+    w24 = torch.from_numpy(dft_matrix(n2)).to(dev)
     with full_f32():                  # the last stage's product alone
         s2_lib_ms = median_ms(lambda: torch.matmul(f1, w24), reps=3)
-    del f1
+    f1t = f1 * tw4                    # the twiddled rows, then cuFFT alone
+    s2_fft_ms = median_ms(lambda: torch.fft.fft(f1t, dim=-1), reps=3)
+    del f1, f1t, w24
     km, kb = peak_sweep(rx4, cc4, offs4)
     pm, pb = caf3_peak_plain(rx4, cc4, offs4)
     errs = hold_peaks(f"peak sweep n={N_4}", km, kb, pm, pb, 77, 54321)
@@ -534,8 +547,9 @@ def main() -> int:
     sweep_plain_ms = median_ms(lambda: caf3_peak_plain(rx4, cc4, offs4),
                                reps=3)
     print(f"stage2_peak ({SHIFTS_4}, {n1}, {n2}): kernel {s2_ms:.4f} ms, plain "
-          f"{s2_plain_ms:.4f} ms, rel err {err4:.3e}; shift-list sweep n={N_4} "
-          f"x {SHIFTS_4}: stage 1 + kernel {sweep_ms:.4f} ms, torch.fft "
+          f"{s2_plain_ms:.4f} ms, torch.matmul {s2_lib_ms:.4f} ms, torch.fft "
+          f"{s2_fft_ms:.4f} ms, rel err {err4:.3e}; shift-list sweep n={N_4} "
+          f"x {SHIFTS_4}: column pass + kernel {sweep_ms:.4f} ms, torch.fft "
           f"{sweep_plain_ms:.4f} ms, rel err {errs:.3e} {tag}")
 
     # upfirdn at the JAX bench's resampling chain, planes read where they lie
@@ -603,6 +617,7 @@ def main() -> int:
     # a sorted list of 128 of its shifts holding the planted one
     gx, gx_cpu, rx_g = group_scene(rng, dev)
     tfold, starts_g, k_g = gx._tfold, gx._starts_t, gx.plan.k
+    planes_g = gx._tf32               # split once at plan build
     offs_g = torch.arange(G_SHIFTS, device=dev)
     pw = power_prefix(rx_g)
 
@@ -615,7 +630,7 @@ def main() -> int:
     g_err, g_abs = {}, {}
     for name, offs in (("sweep", offs_g),
                        ("list", torch.from_numpy(listed).to(dev))):
-        got = group_caf(rx_g, offs, starts_g, tfold, k_g)
+        got = group_caf(rx_g, offs, starts_g, tfold, k_g, planes_g)
         ref = group_caf_plain(rx_g, offs, starts_g, tfold, k_g)
         torch.cuda.synchronize()
         check(got.shape == (offs.shape[0], k_g)
@@ -635,7 +650,7 @@ def main() -> int:
         check(g_abs[name] < GROUP_QF2_ATOL, f"group CAF ({name}) kernel vs "
               f"twin over the whole grid: QF^2 max|d| {g_abs[name]:.3e}")
     g_ms = median_ms(lambda: _group_caf_cuda(rx_g, offs_g, starts_g, tfold,
-                                             k_g), reps=5)
+                                             k_g, planes_g), reps=5)
     g_plain_ms = median_ms(lambda: group_caf_plain(rx_g, offs_g, starts_g,
                                                    tfold, k_g), reps=3)
     xg = rx_g[offs_g[:, None] + (starts_g[:, None] + torch.arange(
@@ -650,7 +665,9 @@ def main() -> int:
                     ols_flop(G_SHIFTS, g_span, k_g),
                     tfold.numel() * 8 + rx_g.numel() * 8 + G_SHIFTS * k_g * 4)
     print(f"group CAF {G_GROUPS}x{G_LEN}, {k_g} bins, {G_SHIFTS} shifts: "
-          f"kernel {g_ms:.4f} ms ({group_caf.splits} depth slabs), plain "
+          f"kernel {g_ms:.4f} ms (3xTF32 wgmma, {group_caf.splits} depth slabs, "
+          f"{g_bound['algorithm_flop'] / g_ms / 1e9:.1f} f32-equivalent "
+          f"TFLOP/s), plain "
           f"{g_plain_ms:.4f} ms, torch.matmul {g_lib_ms:.4f} ms, bound "
           f"{g_bound['bound_ms']:.4f} ms ({g_bound['bound_by']}); per-shift "
           f"peak rel err {g_err['sweep']:.3e} (sweep), {g_err['list']:.3e} "
@@ -712,8 +729,8 @@ def main() -> int:
     big = caf[N_BIG]
     chan = Channeliser(num_taps=TAPS, num_channels=NCH, device=dev)
     tmpl_b, rx_b = burst_scene(ROWS * NCH, N_RX, seed=11, device=dev)
-    kernels = (wola_fused, caf_peak, caf3_peak, stage2_peak, upfirdn_planes,
-               medfilt_kernel)
+    kernels = (wola_fused, caf_peak, caf3_peak, window_columns, stage2_peak,
+               upfirdn_planes, medfilt_kernel)
     for kernel in kernels:
         kernel.launches = 0
     timer = Timer().start()
@@ -914,9 +931,10 @@ def main() -> int:
                      SHIFTS_3 * (9.0 * N_3 + fft_flop(N_3)),
                      8 * (2 * N_3 + 2 * SHIFTS_3 - 1))
     # the last stage: per row a twiddle (6 n2), an n2-point transform, |.|^2
-    s2_bound = bound(8.0 * SHIFTS_4 * n1 * n2 * n2,
+    # and the row peak (3 n2); the kernel's own count is its row plan's
+    s2_bound = bound(SHIFTS_4 * n1 * plan_flop(row_plan(n2)),
                      SHIFTS_4 * n1 * (9.0 * n2 + fft_flop(n2)),
-                     8 * (SHIFTS_4 * n1 * n2 + n1 * n2 + n2 * n2 + SHIFTS_4))
+                     8 * (SHIFTS_4 * n1 * n2 + n1 * n2 + SHIFTS_4))
     # upfirdn: two planes x real taps per output phase, or each phase's
     # filter by overlap-save over the input
     f_bound = bound(2.0 * 2 * n_fir_out * -(-h64.size // UP),
@@ -963,8 +981,12 @@ def main() -> int:
          "shape": f"({SHIFTS_4}, {n1}, {n2}) stage-1 output of n={N_4}",
          "launches": launches["stage2_peak"], "max_abs_err": abs4,
          "ms": s2_ms, "plain_ms": s2_plain_ms, **costs(s2_bound, s2_lib_ms),
+         "library": "torch.matmul by the DFT matrix, full f32",
+         "fft_library_ms": s2_fft_ms,
          "sweep": {"shape": f"n={N_4} x {SHIFTS_4} listed shifts",
-                   "ms": sweep_ms, "plain_ms": sweep_plain_ms}},
+                   "ms": sweep_ms, "plain_ms": sweep_plain_ms,
+                   "factors": [n1, n2],
+                   "column_pass_launches": launches["window_columns"]}},
         {"name": "upfirdn_planes", "route": "cuda",
          "source": "pydsproutines_tpu_torch/csrc/upfirdn.cu",
          "replaces": "pydsproutines_tpu/ops/pallas/upfirdn.py:109",
@@ -985,8 +1007,11 @@ def main() -> int:
          "shape": f"{G_GROUPS} groups x {G_LEN}, {k_g} bins, {G_SHIFTS} "
                   f"shifts",
          "launches": group_launches["group_caf"],
-         "max_abs_err": g_abs["sweep"],
-         "ms": g_ms, "plain_ms": g_plain_ms, **costs(g_bound, g_lib_ms)},
+         "max_abs_err": g_abs["sweep"], "list_max_abs_err": g_abs["list"],
+         "ms": g_ms, "plain_ms": g_plain_ms, **costs(g_bound, g_lib_ms),
+         "precision": "3xTF32 on the tensor cores (wgmma m64n64k8), f32 "
+                      "accumulation, fresh sums each 32-deep stage",
+         "tensor_core_passes": 3, "splits": group_caf.splits},
         {"name": "sliding_multiply_normalised", "route": "cuda",
          "source": "pydsproutines_tpu_torch/csrc/sliding.cu",
          "replaces": "pydsproutines_tpu/ops/pallas/sliding.py:43",

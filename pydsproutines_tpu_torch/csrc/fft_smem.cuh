@@ -1,5 +1,6 @@
 // A block-level mixed-radix complex64 FFT in shared memory, and the passes
-// of the CAF peak kernels (fused_xcorr.cu, fused_caf3.cu) built on it.
+// of the CAF peak kernels (fused_xcorr.cu, fused_caf3.cu, fft_peak.cu)
+// built on it.
 //
 // Line FFT. A block holds `lines` lines of L <= BLOCK_ELEMS points in shared
 // memory (line stride L | 1, odd, so that a column-major load is free of
@@ -34,26 +35,28 @@
 //             loads come in segments of C*8 bytes), the four-step twiddle
 //             W_M^(k0*c) on store (M the pass's length times its columns,
 //             from a (L, cols) table that the shifts of a chunk share in L2)
-//             into a complex64 scratch (nb, n); a second col_pass (three-pass
+//             into a complex64 scratch (nb, n), or (the route of the
+//             last-stage peak kernel, fft_peak.cu) without it, that kernel
+//             applying it as it loads; a second col_pass (three-pass
 //             plans only) does the same in place over each k0 slab viewed
 //             as (f1, f2);
 //   row_peak  the last factor's FFT along the contiguous rows of the
 //             scratch, |X|^2 and each row's (max, lowest argmax) in
 //             registers, one or more warps a row: the spectrum is never
 //             stored;
-//   peak_reduce (cgemm.cuh) the best row per shift and its true bin k0 +
+//   peak_reduce (peak.cuh) the best row per shift and its true bin k0 +
 //             f0*(k1 [+ f1*k2]), ties to the lowest bin.
 //
 // What bounds it on the H100: bytes. Per shift a two-pass plan reads the
 // window and the template (16 n bytes), writes and reads the scratch (16 n)
 // and does ~5 n log2 n flops, against n*(n1+n2) complex MACs for the dense
-// DFT products it replaces (csrc/cgemm.cuh, which #4 and #8 still use).
+// DFT products it replaced.
 //
-// Everything sits in an anonymous namespace (see cgemm.cuh).
+// Everything sits in an anonymous namespace (see peak.cuh).
 
 #pragma once
 
-#include "cgemm.cuh"
+#include "peak.cuh"
 
 namespace {
 
@@ -307,7 +310,8 @@ struct Scratch {
 
 // grid (nb * nmat * ceil(ncols / C)): for slab q of shift z, the L-point
 // FFT of C adjacent columns (rev: the line's digit reversal), times tw[k, c]
-// = W_M^(k*c) with M = L*ncols, stored to out (nb, nmat, L, ncols). out may
+// = W_M^(k*c) with M = L*ncols (Twiddle; else stored as it is and tw is not
+// read), stored to out (nb, nmat, L, ncols). out may
 // be the source itself (each block reads all it writes first). Shifts vary
 // fastest over the grid, so blocks that run together read the same template
 // columns and (for a sweep) nearly the same rx samples, from L2.
@@ -315,7 +319,7 @@ struct Scratch {
 // Both passes ask for three blocks of MAX_THREADS an SM (at most 40
 // registers): three 64 KB blocks fill the SM's shared memory, and this ran
 // faster than one or two blocks with more registers (scripts/exp_caf_smem.py).
-template <class Src>
+template <class Src, bool Twiddle = true>
 __global__ void __launch_bounds__(MAX_THREADS, 3)
 col_pass(Src src, float2* out, LinePlan lp, const float2* __restrict__ wl,
          const int* __restrict__ rev, const float2* __restrict__ tw,
@@ -338,11 +342,11 @@ col_pass(Src src, float2* out, LinePlan lp, const float2* __restrict__ wl,
   __syncthreads();
   fft_lines(smem, smem + C * S, cols, S, lp, wl);
   float2* o = out + ((size_t)z * nmat + q) * ((size_t)L * ncols) + c0;
-  tw += c0;
   for (int g = tid; g < E; g += T) {
     const int k = by_cols.div(g), c = g - k * cols;
     const size_t i = (size_t)k * ncols + c;
-    o[i] = cmul(smem[c * S + k], __ldg(tw + i));
+    o[i] = Twiddle ? cmul(smem[c * S + k], __ldg(tw + c0 + i))
+                   : smem[c * S + k];
   }
 }
 

@@ -20,14 +20,16 @@ x[t1*n2 + t2].
 Three-factor split n = f0*f1*f2 (kernel #4's multi-stage plans and the JAX
 package's three-stage kernel), see ``caf3_tables``.
 
-The CAF peak kernels #2 and #3 compute their DFTs as FFTs in shared memory
-(``csrc/fft_smem.cuh``). Their plan is ``caf_plan``: one pass when the
-window fits one block, else two (three where no two-factor split fits)
+The CAF peak kernels #2, #3 and #4 compute their DFTs as FFTs in shared
+memory (``csrc/fft_smem.cuh``). Their plan is ``caf_plan``: one pass when
+the window fits one block, else two (three where no two-factor split fits)
 passes over a device scratch, each a batch of line FFTs of length at most
-``SMEM_LINE_MAX``. Each line FFT is an in-place decimation-in-time schedule
-of the radices ``radix_plan`` picks, its input loaded in digit-reversed
-order (``digit_reversal``); ``fft_staged`` and ``caf_staged`` run that very
-schedule in torch over the tables the kernels read, for the tests.
+``SMEM_LINE_MAX``; kernel #4 alone is the last of them, a row pass
+(``row_plan``). Each line FFT is an in-place decimation-in-time schedule of
+the radices ``radix_plan`` picks, its input loaded in digit-reversed order
+(``digit_reversal``); ``fft_staged``, ``caf_staged``, ``stage2_staged`` and
+``peak_sweep_staged`` run that very schedule in torch over the tables the
+kernels read, for the tests.
 """
 
 from __future__ import annotations
@@ -109,8 +111,9 @@ def _pad(x: int, m: int) -> int:
 
 
 def _tile_macs(f0: int, f1: int, f2: int) -> int:
-    """Complex MACs of the three-stage kernel per shift with its 64 x 64
-    output tiles and depth-16 steps padded (csrc/cgemm.cuh)."""
+    """Complex MACs per shift of a three-stage dense DFT with 64 x 64
+    output tiles and depth-16 steps padded (the tie-break of the first
+    Hopper three-stage kernel's triple)."""
     return (_pad(f0, 64) * _pad(f0, 16) * f1 * f2
             + f0 * _pad(f1, 64) * _pad(f1, 16) * _pad(f2, 64)
             + f0 * _pad(f1, 64) * _pad(f2, 16) * _pad(f2, 64))
@@ -267,18 +270,19 @@ def _two_split(n: int, emax: int) -> tuple[int, int] | None:
 
 
 @functools.lru_cache(maxsize=64)
-def caf_plan(n: int, emax: int = SMEM_LINE_MAX) -> dict | None:
+def caf_plan(n: int, emax: int = SMEM_LINE_MAX,
+             min_passes: int = 1) -> dict | None:
     """The pass plan of the CAF peak kernels for an n-point window:
     ``factors`` (f0, ..., f_{p-1}) with n = prod, one pass per factor, the
     first p-1 passes column FFTs over a scratch (t = t0*f1*f2 + t1*f2 + t2),
     the last a row FFT with the per-row peak; ``lines`` the columns (or
-    rows) each block of a pass transforms. The fewest passes whose lengths
-    fit ``emax``: one when n <= emax, else two (the split of ``_split_key``),
-    else three. None when no plan exists (a prime factor > emax, or no
-    three-factor split)."""
+    rows) each block of a pass transforms. The fewest passes, at least
+    ``min_passes``, whose lengths fit ``emax``: one when n <= emax, else two
+    (the split of ``_split_key``), else three. None when no plan exists (a
+    prime factor > emax, or no three-factor split)."""
     if n < 2:
         return None
-    if n <= emax:
+    if n <= emax and min_passes < 2:
         # one block per SINGLE_BLOCK_ELEMS-ish: several short windows per
         # block, but enough blocks to spread a short sweep over the SMs
         factors, lines = (n,), (max(1, SINGLE_BLOCK_ELEMS // n),)
@@ -298,6 +302,16 @@ def caf_plan(n: int, emax: int = SMEM_LINE_MAX) -> dict | None:
         lines = (*lines, emax // factors[-1])
     return {"factors": factors, "lines": lines,
             "radices": tuple(radix_plan(f) for f in factors)}
+
+
+def row_plan(length: int, emax: int = SMEM_LINE_MAX) -> dict:
+    """The one-pass plan of kernel #4's row FFT over rows of ``length``
+    points: as many rows a block as fit ``emax`` elements (the last pass of
+    a two-pass ``caf_plan``)."""
+    if not 2 <= length <= emax:
+        raise ValueError(f"row length {length} is not in [2, {emax}]")
+    return {"factors": (length,), "lines": (emax // length,),
+            "radices": (radix_plan(length),)}
 
 
 def plan_ints(plan: dict) -> list[int]:
@@ -419,10 +433,54 @@ def caf_staged(rx: torch.Tensor, cutout_conj: torch.Tensor,
             x = x.reshape(x.shape[0], -1, f[i + 1], cols // f[i + 1])
     x = fft_staged(x.reshape(offsets.shape[0], -1, f[-1]), plan["radices"][-1],
                    tabs[len(f) - 1])
+    return spectrum_peaks(x, f)
+
+
+def spectrum_peaks(x: torch.Tensor, factors):
+    """(peak |X|^2, int64 true bin) per transform of the plan ``factors``
+    from its last-stage rows x (..., f_last), the R = f0*...*f_{L-2} rows of
+    a transform consecutive: |X|^2, each row's peak and lowest argmax, then
+    ``peak_winner``."""
     mag = x.real * x.real + x.imag * x.imag
     rowarg = torch.argmax(mag, dim=-1)
     rowmax = torch.gather(mag, -1, rowarg[..., None])[..., 0]
-    return peak_winner(rowmax, rowarg, f)
+    rows = math.prod(factors[:-1])
+    return peak_winner(rowmax.reshape(-1, rows), rowarg.reshape(-1, rows),
+                       factors)
+
+
+def stage2_staged(f1: torch.Tensor, tw: torch.Tensor, factors=None):
+    """Kernel #4's schedule in torch: each row r of the (B, K1, J) stage-1
+    output times tw[r % K1] as it is loaded, the J-point ``fft_staged`` over
+    the row plan's tables, |X|^2, each row's peak, ``peak_winner`` over the
+    plan ``factors`` (default (K1, J)). Returns (peak |X|^2 as float32,
+    int64 true bin) per transform."""
+    factors = tuple(factors or f1.shape[1:])
+    j = f1.shape[-1]
+    plan = row_plan(j)
+    wl = torch.from_numpy(line_table(j, plan["radices"][0])).to(f1.device)
+    return spectrum_peaks(fft_staged(f1 * tw, plan["radices"][0], wl),
+                          factors)
+
+
+def peak_sweep_staged(rx: torch.Tensor, cutout_conj: torch.Tensor,
+                      offsets: torch.Tensor):
+    """The "peak-kernel-hopper" route's schedule in torch over its tables:
+    per shift s the window rx[s:s+n] * cc viewed as (n1, n2) (the two-pass
+    ``caf_plan(n, min_passes=2)``), its n1-point column ``fft_staged``
+    stored without the twiddle (col_pass's unmodulated store), then
+    ``stage2_staged`` with TW = W_n^(k1*t2) applied on load. Returns (peak
+    |X|^2 as float32, int64 bin) per offset."""
+    n = cutout_conj.shape[-1]
+    plan = caf_plan(n, min_passes=2)
+    n1, n2 = plan["factors"]
+    wl = torch.from_numpy(line_table(n1, plan["radices"][0])).to(rx.device)
+    idx = offsets[:, None] + torch.arange(n, device=rx.device)[None, :]
+    x = (rx[idx] * cutout_conj).reshape(-1, n1, n2)
+    f1 = fft_staged(x.transpose(-1, -2), plan["radices"][0],
+                    wl).transpose(-1, -2)
+    tw = torch.from_numpy(twiddle(n1, n2)).to(rx.device)
+    return stage2_staged(f1, tw, (n1, n2))
 
 
 def _butterfly_flop(r: int) -> int:

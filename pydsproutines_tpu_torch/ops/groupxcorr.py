@@ -12,8 +12,9 @@ xcorr evaluates, for each shift and scan frequency f,
   "group-caf-hopper"  complex64 CUDA input with a CZT tone bank: the
                       Hopper group CAF kernel (ops/hopper/group_caf.py)
                       over the tone bank folded with the conjugated template
-                      and the group phases (``fold_tone_bank``), f32
-                      throughout, uniform sweeps and shift lists alike;
+                      and the group phases (``fold_tone_bank``), split once
+                      at plan build for its 3xTF32 tensor-core product
+                      (f32 grade), uniform sweeps and shift lists alike;
   "plain"             CPU tensors, complex128, ``fused=False`` (the JAX
                       parity tier): the kernel's twin over the same folded
                       bank; with no tone bank (m*k > 4,000,000), per-group
@@ -33,7 +34,8 @@ import torch
 
 from pydsproutines_tpu_torch.ops.hopper.group_caf import (group_caf,
                                                           group_caf_plain,
-                                                          group_windows)
+                                                          group_windows,
+                                                          tf32_planes)
 from pydsproutines_tpu_torch.ops.spectral import CZT
 from pydsproutines_tpu_torch.ops.xcorr import _abs_sq, power_prefix
 from pydsproutines_tpu_torch.utils.device import resolve_device
@@ -86,9 +88,9 @@ def select_group_caf_path(g: int, m: int, k: int, dtype: torch.dtype,
     if dtype != torch.complex64:
         return "plain", f"dtype {dtype}: the group CAF kernel takes complex64"
     return "group-caf-hopper", (
-        f"G={g} groups x m={m}, k={k} bins: Hopper group CAF kernel, f32 "
-        f"throughout; the TPU kernel's VMEM gate (m % 128, batch % 8, 88 MB) "
-        f"does not apply")
+        f"G={g} groups x m={m}, k={k} bins: Hopper group CAF kernel, 3xTF32 "
+        f"tensor-core product at f32 grade; the TPU kernel's VMEM gate "
+        f"(m % 128, batch % 8, 88 MB) does not apply")
 
 
 def _checked_shifts(shifts, rx, span: int, lo: int) -> torch.Tensor:
@@ -177,11 +179,14 @@ class GroupXcorrCZT:
         self.group_phases = phases
         dev = self.device
         self._starts_t = torch.from_numpy(starts.astype(np.int64)).to(dev)
-        self._tfold = None
+        self._tfold = self._tf32 = None
         if plan.tones is not None:
             tones = plan.tones if tones is None else tones
             self._tfold = torch.from_numpy(fold_tone_bank(
                 ystack, tones, phases).astype(numpy_dtype(plan.dtype))).to(dev)
+            if dev.type == "cuda" and self._tfold.dtype == torch.complex64:
+                # split once for the kernel's 3xTF32 product
+                self._tf32 = tf32_planes(self._tfold)
         else:
             self._ystack_t = torch.from_numpy(ystack).to(dev)
             self._phases_t = torch.from_numpy(phases).to(dev)
@@ -209,7 +214,8 @@ class GroupXcorrCZT:
         path, _ = select_group_caf_path(g, m, k, self.plan.dtype, rx.device,
                                         self._tfold is not None, fused)
         if path == "group-caf-hopper":
-            mag = group_caf(rx, shifts, self._starts_t, self._tfold, k)
+            mag = group_caf(rx, shifts, self._starts_t, self._tfold, k,
+                            self._tf32)
         elif self._tfold is not None:
             mag = group_caf_plain(rx, shifts, self._starts_t, self._tfold, k,
                                   batch_size)

@@ -40,8 +40,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "pdsp_wola_fused": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "pdsp_caf_peak": ([_P] * 9 + [_L, _I, _I, _P], _I),
-    "pdsp_stage2_peak": ([_P] * 7 + [_I] * 4 + [_P, _I, _P], _I),
-    "pdsp_window_stage1": ([_P] * 5 + [_I] * 3 + [_P], _I),
+    "pdsp_stage2_peak": ([_P] * 9 + [_I, _I, _P, _I, _P], _I),
+    "pdsp_window_cols": ([_P] * 7 + [_I, _P], _I),
     "pdsp_caf3_peak": ([_P] * 10 + [_I, _P], _I),
     "pdsp_upfirdn_f32": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_P] + [_I] * 3
                          + [_P], _I),
@@ -49,8 +49,8 @@ _SIGNATURES = {
                          + [_P], _I),
     "pdsp_medfilt_f32": ([_P, _P, _L, _I, _P], _I),
     "pdsp_medfilt_f64": ([_P, _P, _L, _I, _P], _I),
-    "pdsp_group_caf": ([_P, _L, _P, _I, _P, _I, _I, _P, _I, _P, _L, _P, _P,
-                        _P], _I),
+    "pdsp_group_caf": ([_P, _L, _P, _I, _P, _I, _I, _P, _I, _I, _P, _L, _P,
+                        _P, _P], _I),
     "pdsp_sliding": ([_P, _L, _P, _I, _I, _P, _P, _P], _I),
 }
 

@@ -36,7 +36,7 @@ import functools
 import torch
 
 from pydsproutines_tpu_torch.ops.fft import (caf3_tables, find_triple,
-                                             peak_winner)
+                                             spectrum_peaks)
 from pydsproutines_tpu_torch.ops.hopper import _build
 from pydsproutines_tpu_torch.ops.hopper.fft_peak import (check_offsets,
                                                          require_c64)
@@ -86,10 +86,7 @@ def caf3_staged(rx: torch.Tensor, cutout_conj: torch.Tensor,
     s1 = s1 * t["a1"][None, :, :, None] * t["a2"][None, :, None, :]
     s2 = torch.einsum("ln,bkni->bkli", t["w1"], s1) * t["tw2"]
     x = torch.einsum("bkli,im->bklm", s2, t["w2"])   # (b, k0, k1, k2)
-    mag = (x.real * x.real + x.imag * x.imag).reshape(x.shape[0], f0 * f1, f2)
-    rowarg = torch.argmax(mag, dim=-1)
-    rowmax = torch.gather(mag, -1, rowarg[..., None])[..., 0]
-    return peak_winner(rowmax, rowarg, (f0, f1, f2))
+    return spectrum_peaks(x, (f0, f1, f2))
 
 
 def caf3_peak(rx: torch.Tensor, cutout_conj: torch.Tensor,

@@ -26,8 +26,7 @@ import functools
 
 import torch
 
-from pydsproutines_tpu_torch.ops.fft import (caf_plan, caf_tables, dft_matrix,
-                                             plan_ints, twiddle)
+from pydsproutines_tpu_torch.ops.fft import caf_plan, caf_tables, plan_ints
 from pydsproutines_tpu_torch.ops.hopper import _build
 from pydsproutines_tpu_torch.utils.memory import chunk_shifts
 
@@ -81,22 +80,14 @@ def caf_peak(rx: torch.Tensor, cutout_conj: torch.Tensor, s0: int, step: int,
 caf_peak.launches = 0
 
 
-@functools.lru_cache(maxsize=4)
-def split_tables(n1: int, n2: int, device: torch.device):
-    """Device copies of (W1, TW, W2) for the split n = n1*n2 (the dense
-    stage-1 tables of ``ops/hopper/fft_peak``)."""
-    return tuple(torch.from_numpy(t).to(device)
-                 for t in (dft_matrix(n1), twiddle(n1, n2), dft_matrix(n2)))
-
-
 class CafLaunch:
-    """What a launch of the CAF kernels (#2, #3) needs for an n-point
-    window on one device: the plan, its device tables, and the two host
-    arrays the C entry points read (the five table pointers, the plan's
-    ints)."""
+    """What a launch of the CAF kernels (#2, #3, #4) needs for an n-point
+    window on one device: the plan (``caf_plan(n)`` unless given), its
+    device tables (``caf_tables``), and the two host arrays the C entry
+    points read (the five table pointers, the plan's ints)."""
 
-    def __init__(self, n: int, device: torch.device):
-        self.plan = caf_plan(n)
+    def __init__(self, n: int, device: torch.device, plan: dict | None = None):
+        self.plan = plan or caf_plan(n)
         if self.plan is None:
             raise ValueError(f"n={n} has no shared-memory FFT plan for the "
                              "CAF kernels")

@@ -33,11 +33,15 @@ def wola_plain(f_tap: torch.Tensor, x: torch.Tensor, dec: int,
     With y[r, a] = x[r*dec - a] (zero before 0), the fold is a B-tap FIR down
     each column of y at a row stride of q = n/dec:
     dft_in[r, a] = sum_b h[b*n + a] * y[r - b*q, a].
+
+    Complex taps stay complex (the JAX N == 2*Dec fold keeps them so,
+    ``pydsproutines_tpu/ops/wola.py:82``); real taps take x's real dtype.
     """
     taps = f_tap.shape[-1]
     nb, q = taps // n, n // dec
     rows = x.shape[-1] // dec
-    h = f_tap.to(real_dtype_for(x.dtype)).reshape(nb, n)
+    hdt = x.dtype if f_tap.is_complex() else real_dtype_for(x.dtype)
+    h = f_tap.to(hdt).reshape(nb, n)
     xp = torch.cat([x.new_zeros(n), x[: rows * dec]])
     # y_rev[r, j] = xp[1 + r*dec + j] = x[r*dec - (n-1-j)]
     y = xp.as_strided((rows, n), (dec, 1), xp.storage_offset() + 1).flip(-1)

@@ -37,10 +37,12 @@ def wola(f_tap: torch.Tensor, x: torch.Tensor, dec: int, n: int | None = None,
          row_offset: int = 0) -> torch.Tensor:
     """WOLA channelize ``x`` into ``n`` channels decimated by ``dec``.
 
-    ``f_tap`` is real with a length that is a multiple of ``n``; ``n`` must
-    be ``dec`` or ``2*dec``. ``row_offset`` is the global index of the first
+    ``f_tap`` has a length that is a multiple of ``n``; ``n`` must be
+    ``dec`` or ``2*dec``. ``row_offset`` is the global index of the first
     output row, so that streamed blocks flip the same rows (N == 2*Dec) as
-    the whole-signal computation.
+    the whole-signal computation. Complex taps are used as they are at
+    N == 2*Dec; at N == Dec only their real part is (the JAX package's
+    ``jnp.real(f_tap)``), before the kernel or its twin.
     """
     if n is None:
         n = dec
@@ -49,6 +51,8 @@ def wola(f_tap: torch.Tensor, x: torch.Tensor, dec: int, n: int | None = None,
     if f_tap.shape[-1] % n != 0:
         raise ValueError("Filter tap length must be an integer multiple of N.")
     if n == dec:
+        if f_tap.is_complex():
+            f_tap = f_tap.real.contiguous()
         return wola_fused(f_tap, x, n)
     out = wola_plain(f_tap, x, dec, n)
     rows = out.shape[0]

@@ -20,13 +20,17 @@ with the JAX signature, defaults and modes:
   "fused3-hopper"       the Hopper CAF kernel over a shift list
                         (ops/hopper/fused_caf3.py) for n >= 2^21 with a
                         factor triple (the JAX "fused3" gate), uniform
-                        shifts or a list;
+                        shifts or a list; and for a shift list whose
+                        shared-memory FFT plan is not two passes (a window
+                        that fits one block, or a three-pass plan);
   "fused-hopper"        the Hopper CAF kernel over a uniform sweep
                         (ops/hopper/fused_xcorr.py) for any other n with a
                         two-factor split;
-  "peak-kernel-hopper"  a shift list over a two-factor split: stage 1 read
-                        through the per-shift offsets, then the Hopper
-                        last-stage peak kernel (ops/hopper/fft_peak.py);
+  "peak-kernel-hopper"  a shift list under a two-pass plan n = n1*n2: the
+                        shared-memory column pass read through the per-shift
+                        offsets, then the Hopper last-stage peak kernel
+                        (ops/hopper/fft_peak.py: twiddle on load, row FFT,
+                        row peaks);
   "plain"               torch.fft over gathered windows (CPU tensors, other
                         dtypes, complex peaks, n with no split).
 
@@ -156,10 +160,8 @@ def select_xcorr_path(n: int, dtype: torch.dtype, step: int | None,
                 f"gate, factors in [16, 1024] with no TPU lane rule): Hopper "
                 f"CAF kernel over the shift offsets, {_fft_passes(n)}, {f32}")
         note = f"; n={n} has no factor triple in [16, 1024]"
-    split = best_two_factor(n)
-    if split is None:
+    if best_two_factor(n) is None:
         return "plain", f"n={n} has no two-factor split{note}"
-    n1, n2 = split
     if step is not None:
         reason = (f"{sweep}, n={n}: Hopper CAF kernel, {_fft_passes(n)}, "
                   f"{f32}{note}")
@@ -167,8 +169,17 @@ def select_xcorr_path(n: int, dtype: torch.dtype, step: int | None,
             reason += (f"; the TPU kernel's n >= 4096 VMEM gate does not "
                        f"apply, so this n={n} sweep runs the kernel")
         return "fused-hopper", reason
-    reason = (f"{sweep}, n={n}={n1}x{n2}: stage 1 over per-shift offsets, "
-              f"then the Hopper last-stage peak kernel, {f32}{note}")
+    passes = caf_plan(n)["factors"]
+    if len(passes) != 2:
+        return "fused3-hopper", (
+            f"{sweep}, n={n}: {_fft_passes(n)}, not the two passes the "
+            f"last-stage peak kernel's route takes, so the Hopper CAF kernel "
+            f"over the shift offsets runs it whole, {f32}{note}")
+    n1, n2 = passes
+    reason = (f"{sweep}, n={n}={n1}x{n2}: shared-memory column FFTs over "
+              f"per-shift offsets, then the Hopper last-stage peak kernel "
+              f"(twiddle on load, {n2}-point row FFTs, row peaks), "
+              f"{f32}{note}")
     plan = fft_factors(n)
     if plan is not None and plan != [n1, n2]:
         reason += f"; the JAX plan {plan} becomes this two-factor split"

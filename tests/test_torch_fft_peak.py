@@ -4,9 +4,12 @@ the CPU.
 The same seeded numpy inputs (complex64) go through the JAX kernel
 ``stage2_caf_peak`` and ``FourStepFFT.call_peak`` in "f32" interpret mode
 and through the port's CPU versions (``stage2_peak`` runs its plain twin
-``stage2_peak_plain`` for CPU tensors). Tolerances: bins exact (planted
-peaks or seeded spectra without exact ties); peak |X|^2 rtol 5e-6, the JAX
-f32 mode's own tolerance against numpy (``tests/test_fft_peak.py``); plan
+``stage2_peak_plain`` for CPU tensors; ``ops/fft.stage2_staged`` and
+``peak_sweep_staged`` run the Hopper kernel's schedule: the twiddle on
+load, the shared-memory row FFT over its f32 tables, the column pass
+stored without its twiddle). Tolerances: bins exact (planted peaks or
+seeded spectra without exact ties); peak |X|^2 rtol 5e-6, the JAX f32
+mode's own tolerance against numpy (``tests/test_fft_peak.py``); plan
 factors exact; tables within 1e-7 (the same float64 phases).
 """
 
@@ -20,7 +23,8 @@ from pydsproutines_tpu.ops.pallas.fft_peak import stage2_caf_peak
 from pydsproutines_tpu_torch.ops import fft as tfft
 from pydsproutines_tpu_torch.ops.hopper.fft_peak import (
     leading_stages_plain, peak_sweep, stage2_peak, stage2_peak_plain,
-    window_stage1, window_stage1_plain)
+    sweep_plan, window_columns, window_columns_plain)
+from pydsproutines_tpu_torch.ops.hopper.fused_caf3 import caf3_peak_plain
 
 PEAK_RTOL = 5e-6
 
@@ -36,8 +40,8 @@ def _rows(rng, b, n, bins=None):
 
 def _port_peak(x, factors):
     f1 = leading_stages_plain(torch.from_numpy(x), list(factors))
-    tw, w2 = (torch.from_numpy(t) for t in tfft.peak_consts(factors))
-    pk, bins = stage2_peak(f1, tw, w2, factors)
+    tw = torch.from_numpy(tfft.peak_consts(factors)[0])
+    pk, bins = stage2_peak(f1, tw, factors)
     return f1, pk.numpy(), bins.numpy()
 
 
@@ -116,18 +120,27 @@ def test_peak_winner_matches_jax(rng):
     np.testing.assert_array_equal(bins.numpy(), np.asarray(jbin))
 
 
-def test_stage2_ties_go_to_the_lowest_bin():
-    """Equal magnitudes at true bins 9 (row 1) and 7 (row 3): the port
-    returns 7, as torch.argmax over the natural-order spectrum would; the
-    TPU kernel returns the first row's (9)."""
+def _tie():
+    """(f1, tw) of K1 = 4, J = 8 whose spectra are exactly 8 at row 1's k2 =
+    2 (true bin 9: i^t, the radix butterflies multiply by +-1 and +-i
+    only) and at row 3's k2 = 0 (true bin 3: all ones), zero elsewhere."""
     f1 = torch.zeros((1, 4, 8), dtype=torch.complex64)
-    f1[0, 1, 2] = 1.0
-    f1[0, 3, 1] = 1.0j
-    tw = torch.ones((4, 8), dtype=torch.complex64)
-    w2 = torch.eye(8, dtype=torch.complex64)
-    assert int(stage2_peak(f1, tw, w2)[1][0]) == 7
-    jbin = stage2_caf_peak(jnp.asarray(f1.numpy()), tw.numpy(), w2.numpy(),
-                           4, mode="f32", interpret=True)[1]
+    f1[0, 1] = torch.from_numpy((1j ** np.arange(8)).astype(np.complex64))
+    f1[0, 3] = 1.0
+    return f1, torch.ones((4, 8), dtype=torch.complex64)
+
+
+def test_stage2_ties_go_to_the_lowest_bin():
+    """Equal magnitudes at true bins 9 (row 1) and 3 (row 3): the port's
+    twin and the kernel's schedule return 3, as torch.argmax over the
+    natural-order spectrum would; the TPU kernel returns the first row's
+    (9)."""
+    f1, tw = _tie()
+    for pk, bins in (stage2_peak(f1, tw), tfft.stage2_staged(f1, tw)):
+        assert float(pk[0]) == 64.0 and int(bins[0]) == 3
+    jbin = stage2_caf_peak(jnp.asarray(f1.numpy()), tw.numpy(),
+                           tfft.dft_matrix(8), 4, mode="f32",
+                           interpret=True)[1]
     assert int(jbin[0]) == 9
 
 
@@ -135,30 +148,36 @@ def test_stage2_peak_checks_shapes():
     f1 = torch.zeros((2, 4, 8), dtype=torch.complex64)
     tw = torch.ones((4, 8), dtype=torch.complex64)
     with pytest.raises(ValueError):
-        stage2_peak(f1, tw[:, :4], torch.eye(8, dtype=torch.complex64))
-    with pytest.raises(ValueError):          # factors must end in (K1, K2)
-        stage2_peak(f1, tw, torch.eye(8, dtype=torch.complex64), (4, 4))
+        stage2_peak(f1, tw[:, :4])
+    with pytest.raises(ValueError):          # factors must end in (K1, J)
+        stage2_peak(f1, tw, (4, 4))
     with pytest.raises(ValueError):          # 8 rows are not 12-row transforms
-        stage2_peak(f1, tw, torch.eye(8, dtype=torch.complex64), (3, 4, 8))
+        stage2_peak(f1, tw, (3, 4, 8))
+    with pytest.raises(ValueError):          # no longer takes a w2
+        stage2_peak(f1, tw, torch.eye(8, dtype=torch.complex64))
 
 
-def test_window_stage1_twin_matches_numpy(rng):
-    n1, n2 = 16, 32
+def test_window_columns_twin_matches_numpy(rng):
+    """Stage 1 of the list route: the n1-point DFT down the columns of
+    each window viewed as (n1, n2), no twiddle (the column pass's
+    unmodulated store), at the route's plan for n = 512 (16 x 32)."""
+    plan = sweep_plan(512)
+    n1, n2 = plan["factors"]
+    assert (n1, n2) == (16, 32)
     rx = (rng.standard_normal(900) + 1j * rng.standard_normal(900)).astype(
         np.complex64)
     cc = (rng.standard_normal(n1 * n2)
           + 1j * rng.standard_normal(n1 * n2)).astype(np.complex64)
     offs = np.array([0, 7, 8, 300, 388])
     w1 = tfft.dft_matrix(n1)
-    got = window_stage1(torch.from_numpy(rx), torch.from_numpy(cc),
-                        torch.from_numpy(w1), torch.from_numpy(offs), n1, n2)
+    got = window_columns(torch.from_numpy(rx), torch.from_numpy(cc),
+                         torch.from_numpy(offs))
     ref = np.stack([w1.astype(np.complex128)
                     @ (rx[s: s + n1 * n2] * cc).reshape(n1, n2)
                     for s in offs])
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-4)
-    plain = window_stage1_plain(torch.from_numpy(rx), torch.from_numpy(cc),
-                                torch.from_numpy(w1), torch.from_numpy(offs),
-                                n1, n2)
+    plain = window_columns_plain(torch.from_numpy(rx), torch.from_numpy(cc),
+                                 torch.from_numpy(offs))
     np.testing.assert_array_equal(got.numpy(), plain.numpy())
 
 
@@ -183,3 +202,77 @@ def test_peak_sweep_matches_numpy(rng, n, batch):
     np.testing.assert_array_equal(bins.numpy(), spec.argmax(-1))
     np.testing.assert_allclose(pk.numpy(), spec.max(-1), rtol=PEAK_RTOL)
     assert int(bins[3]) == 333
+
+
+@pytest.mark.parametrize("factors", [(64, 64), (100, 128), (1000, 1000)])
+def test_stage2_staged_matches_pallas_kernel_interpret(rng, factors):
+    """The Hopper kernel's schedule (twiddle on load, shared-memory row FFT
+    over its tables, row peaks, reduction) against the TPU kernel in "f32"
+    interpret mode and float64 numpy, with planted peaks: bins exact."""
+    n = int(np.prod(factors))
+    nrows = 3 if n < 10**6 else 1
+    bins = [5, n // 2 + 3, n - 17][:nrows]
+    x = _rows(rng, nrows, n, bins)
+    f1 = leading_stages_plain(torch.from_numpy(x), list(factors))
+    tw, w2 = tfft.peak_consts(factors)
+    pk, got = tfft.stage2_staged(f1, torch.from_numpy(tw))
+    assert pk.dtype == torch.float32 and got.tolist() == bins
+    ref = np.abs(np.fft.fft(x.astype(np.complex128))) ** 2
+    np.testing.assert_array_equal(got.numpy(), ref.argmax(-1))
+    np.testing.assert_allclose(pk.numpy(), ref.max(-1), rtol=PEAK_RTOL)
+    if n < 10**6:                # the interpreted TPU kernel at small n
+        jpk, jbin = stage2_caf_peak(jnp.asarray(f1.numpy()), tw, w2.T,
+                                    factors[0], mode="f32", interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jbin))
+        np.testing.assert_allclose(pk.numpy(), np.asarray(jpk),
+                                   rtol=PEAK_RTOL)
+
+
+@pytest.mark.parametrize("factors", [(32, 16, 16), (8, 8, 8, 8)])
+def test_stage2_staged_folds_deeper_plans(rng, factors):
+    """A deeper plan's leading rows folded into the batch: the schedule's
+    true bins against ``FourStepFFT.call_peak`` (f32, interpret) and the
+    twin."""
+    n = int(np.prod(factors))
+    x = _rows(rng, 3, n, [7, n // 3 + 1, n - 2])
+    f1 = leading_stages_plain(torch.from_numpy(x), list(factors))
+    tw = torch.from_numpy(tfft.peak_consts(factors)[0])
+    pk, bins = tfft.stage2_staged(f1, tw, factors)
+    ppk, pbins = stage2_peak_plain(f1, tw, factors)
+    jpk, jbin = jfft.FourStepFFT(n, factors=list(factors)).call_peak(
+        jnp.asarray(x), mode="f32", interpret=True)
+    assert bins.tolist() == pbins.tolist() == np.asarray(jbin).tolist() \
+        == [7, n // 3 + 1, n - 2]
+    np.testing.assert_allclose(pk.numpy(), np.asarray(jpk), rtol=PEAK_RTOL)
+    np.testing.assert_allclose(pk.numpy(), ppk.numpy(), rtol=PEAK_RTOL)
+
+
+@pytest.mark.parametrize("n,offsets", [
+    (65536, [0, 5, 6, 11, 40, 77]),        # 256 x 256
+    (12800, [1, 2, 9]),                    # 100 x 128
+    (4096, [0, 3, 4]),                     # fits one block: split 64 x 64
+])
+def test_peak_sweep_staged_matches_caf3_plain(rng, n, offsets):
+    """The list route's schedule (column pass stored without its twiddle,
+    then the kernel's twiddle-on-load row pass) against the shift-list
+    twin ``caf3_peak_plain`` (torch.fft) on a listed sweep: bins exact,
+    peaks within PEAK_RTOL; the route's CPU call agrees too."""
+    i_star = len(offsets) // 2
+    cut = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    rx = (0.5 * (rng.standard_normal(offsets[-1] + n)
+                 + 1j * rng.standard_normal(offsets[-1] + n))).astype(
+        np.complex64)
+    s = offsets[i_star]
+    rx[s: s + n] += (cut * np.exp(2j * np.pi * (n // 3) * np.arange(n) / n)
+                     ).astype(np.complex64)
+    args = (torch.from_numpy(rx), torch.from_numpy(np.conj(cut)),
+            torch.tensor(offsets))
+    pk, bins = tfft.peak_sweep_staged(*args)
+    ppk, pbins = caf3_peak_plain(*args)
+    np.testing.assert_array_equal(bins.numpy(), pbins.numpy())
+    np.testing.assert_allclose(pk.numpy(), ppk.numpy(), rtol=PEAK_RTOL)
+    assert int(torch.argmax(pk)) == i_star and int(bins[i_star]) == n // 3
+    rpk, rbins = peak_sweep(*args)
+    np.testing.assert_array_equal(rbins.numpy(), bins.numpy())
+    np.testing.assert_allclose(rpk.numpy(), pk.numpy(), rtol=PEAK_RTOL)

@@ -12,6 +12,10 @@ The same numpy inputs go through the JAX classes (CPU, x64 on) and the port
   the grid (``tests/test_groupxcorr.py:219-220``);
 * the kernel's twin against float64 numpy: rtol 1e-5 of the grid's max
   (an f32 product over G*m terms);
+* the Hopper kernel's 3xTF32 arithmetic (``group_caf_staged``: TF32 hi/lo
+  splits rounded as ``cvt.rna`` does, lo*hi + hi*lo + hi*hi in f32) on the
+  QF^2 grid against float64 numpy within chip_smoke.py's GROUP_QF2_ATOL =
+  4e-6, and against the JAX kernel at its bf16 bounds (above);
 * the other classes at complex128: 1e-9; MultiPreambleCorrelator, which
   computes in complex64 on both sides, 1e-5 absolute on its 0..1 grid (the
   JAX side takes its window energies as differences of an f32 prefix sum,
@@ -27,9 +31,13 @@ from pydsproutines_tpu.ops import groupxcorr as jg
 from pydsproutines_tpu.ops import multicorr as jm
 from pydsproutines_tpu_torch.ops import groupxcorr as tg
 from pydsproutines_tpu_torch.ops import multicorr as tm
-from pydsproutines_tpu_torch.ops.hopper.group_caf import (group_caf,
-                                                          group_caf_plain,
-                                                          group_windows)
+from pydsproutines_tpu_torch.ops.hopper.group_caf import (
+    group_caf, group_caf_plain, group_caf_staged, group_windows,
+    planes_unpacked, tf32_planes, tf32_round, tf32_split)
+from pydsproutines_tpu_torch.ops.xcorr import power_prefix
+
+# chip_smoke.py's gate on the kernel's whole QF^2 grid
+GROUP_QF2_ATOL = 4e-6
 
 
 def _cplx(rng, shape, dtype=np.complex128):
@@ -430,3 +438,100 @@ def test_group_xcorr_czt_exact_for_a_short_last_group_at_the_end(rng):
     truth = _np_truth(y, starts, lengths, -0.01, 0.01, 5e-4, 1.0, rx, shifts)
     assert got.shape == truth.shape
     assert np.abs(got.numpy() - truth).max() < 1e-9
+
+
+def test_tf32_round_is_cvt_rna(rng):
+    """TF32 keeps 10 stored mantissa bits: x rounded to the nearest
+    multiple of 2^(e - 10) (e = floor(log2|x|)), ties away from zero, as
+    ``cvt.rna.tf32.f32``; the split's hi + lo is x to ~2^-22."""
+    x = (rng.standard_normal(4096) * 10.0 ** rng.integers(-6, 6, 4096)
+         ).astype(np.float32)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(x.astype(np.float64)))) - 10)
+    q = np.abs(x.astype(np.float64)) / ulp
+    want = np.sign(x) * np.floor(q + 0.5) * ulp
+    got = tf32_round(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.astype(np.float64), want)
+    ties = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 3 * 2.0 ** -11],
+                    np.float32)
+    np.testing.assert_array_equal(tf32_round(torch.from_numpy(ties)).numpy(),
+                                  [1 + 2.0 ** -10, -(1 + 2.0 ** -10),
+                                   1 + 2 * 2.0 ** -10])
+    hi, lo = tf32_split(torch.from_numpy(x))
+    assert np.all(hi.numpy().view(np.int32) & 0x1FFF == 0)
+    assert np.all(lo.numpy().view(np.int32) & 0x1FFF == 0)
+    err = np.abs(hi.numpy().astype(np.float64) + lo.numpy() - x)
+    assert np.all(err <= 2.0 ** -22 * np.abs(x))
+
+
+def test_tf32_planes_layout(rng):
+    """The split tfold as the kernel's shared-memory image: padded to
+    (32, 64) multiples with zeros; in tile (kb, nb), plane p (re hi, re lo,
+    im hi, im lo), bin group ng, depth group kg, the 16 bytes of bin
+    nb*64 + ng*8 + r hold depths kb*32 + kg*4 .. + 3; and unpacked back to
+    the split planes."""
+    tf = _cplx(rng, (40, 21), np.complex64)
+    planes = tf32_planes(torch.from_numpy(tf))
+    assert planes.shape == (64 // 32, 64 // 64, 4, 8, 8, 8, 4)
+    assert planes.dtype == torch.float32
+    kb, nb, ng, kg, r = 1, 0, 1, 1, 5
+    row, col = kb * 32 + kg * 4, nb * 64 + ng * 8 + r
+    hi, lo = tf32_split(torch.from_numpy(np.ascontiguousarray(tf.imag)))
+    np.testing.assert_array_equal(planes[kb, nb, 3, ng, kg, r].numpy(),
+                                  lo[row: row + 4, col].numpy())
+    np.testing.assert_array_equal(planes[kb, nb, 2, ng, kg, r].numpy(),
+                                  hi[row: row + 4, col].numpy())
+    assert float(planes[1, :, :, :, 2:].abs().max()) == 0.0   # depths 40..63
+    assert float(planes[:, :, :, 3:].abs().max()) == 0.0   # bins 24..63
+    back = planes_unpacked(planes, 40, 21)
+    for p, part in enumerate((tf.real, tf.imag)):
+        for h, want in enumerate(tf32_split(
+                torch.from_numpy(np.ascontiguousarray(part)))):
+            torch.testing.assert_close(back[p, h], want, rtol=0, atol=0)
+
+
+def _staged_qf2(tx, rx, shifts):
+    """The Hopper kernel's 3xTF32 arithmetic over a CPU plan's folded tone
+    bank, on the QF^2 scale ``GroupXcorrCZT.xcorr`` returns."""
+    rxt, sh = torch.from_numpy(rx), torch.as_tensor(shifts)
+    mag = group_caf_staged(rxt, sh, tx._starts_t, tf32_planes(tx._tfold),
+                           tx.max_length, tx.plan.k)
+    norms = tg._group_energy(power_prefix(rxt), sh, tx.starts, tx.lengths)
+    return (mag.double() / norms[:, None] / tx.ystack_norm_sq).numpy()
+
+
+@pytest.mark.parametrize("geom", GEOMS[:2], ids=["uniform", "ragged"])
+def test_group_caf_staged_matches_numpy(rng, geom):
+    """The kernel's 3xTF32 product against the float64 numpy re-derivation
+    on the whole QF^2 grid within GROUP_QF2_ATOL, the planted shift exact;
+    and against the full-f32 twin to the same bound."""
+    starts, lengths, f1, f2, bw, fs = geom
+    y, rx = _scene(rng, starts, lengths, int(np.max(starts + lengths)) + 400,
+                   300, fshift=0.004, dtype=np.complex64)
+    shifts = np.arange(280, 320)
+    tx = tg.GroupXcorrCZT(y, starts, lengths, f1, f2, bw, fs, device="cpu")
+    got = _staged_qf2(tx, rx, shifts)
+    truth = _np_truth(y, starts, lengths, f1, f2, bw, fs, rx, shifts)
+    assert np.abs(got - truth).max() < GROUP_QF2_ATOL
+    assert shifts[np.unravel_index(np.argmax(got), got.shape)[0]] == 300
+    twin = tx.xcorr(torch.from_numpy(rx), shifts)[0].numpy()
+    assert np.abs(got - twin).max() < GROUP_QF2_ATOL
+
+
+def test_group_caf_staged_matches_the_jax_kernel(rng):
+    """The kernel's 3xTF32 product against the JAX group CAF kernel itself
+    (Pallas, interpret mode, bf16 operands) at its bounds, G = 4, m = 128,
+    k = 16, 64 shifts: the planted peak exact, within rtol 2e-2 there and
+    atol 5e-3*max on the grid."""
+    y, rx, starts, lengths, grid = _kernel_scene(rng)
+    shifts = np.arange(64, 128)
+    jx = jg.GroupXcorrCZT(y, starts, lengths, *grid)
+    consts = jx._fused_consts(batch=64, step=1)
+    ref = np.asarray(jx._xcorr_fused(jnp.asarray(rx), jnp.asarray(shifts),
+                                     consts, formulation="pallas"))
+    tx = tg.GroupXcorrCZT(y, starts, lengths, *grid, device="cpu")
+    got = _staged_qf2(tx, rx, shifts)
+    ri, rj = np.unravel_index(np.argmax(ref), ref.shape)
+    assert np.unravel_index(np.argmax(got), got.shape) == (ri, rj)
+    assert shifts[ri] == 97
+    np.testing.assert_allclose(got[ri, rj], ref[ri, rj], rtol=2e-2)
+    np.testing.assert_allclose(got, ref, rtol=0.2, atol=5e-3 * ref.max())

@@ -14,8 +14,11 @@ in float32 (f32 FMA chains of up to a few hundred taps against a full-f32
 matrix product), 1e-9 absolute in float64, and
 ``tests/test_filters.py``'s scipy bound; medfilt bit-equal (``torch.equal``);
 group CAF |C|^2 per-shift peak rtol 1e-4 and the grid within 1e-4 of its
-max (f32 sums of G*m products in another order), the planted shift and bin
-exact; sliding QF^2 max|d| < 1e-5 on its 0..1 scale (f32 window energies
+max (the kernel's 3xTF32 products, f32 sums of G*m of them in another
+order), the planted shift and bin exact, and against
+``group_caf_staged``, its own arithmetic in torch, within 2e-5 of each
+row's maximum (the tensor cores' accumulation in another order); the
+last-stage peak kernel within 1e-5 of ``stage2_staged``; sliding QF^2 max|d| < 1e-5 on its 0..1 scale (f32 window energies
 summed in the kernel vs the twin's float64 window sums).
 The plain twins' matrix products run in full f32 (TF32 off).
 """
@@ -25,10 +28,10 @@ import pytest
 import scipy.signal as sps
 import torch
 
-from pydsproutines_tpu_torch.ops.fft import best_two_factor, peak_consts
+from pydsproutines_tpu_torch.ops.fft import peak_consts, stage2_staged
 from pydsproutines_tpu_torch.ops.hopper.fft_peak import (
     leading_stages_plain, peak_sweep, stage2_peak, stage2_peak_plain,
-    window_stage1, window_stage1_plain)
+    window_columns, window_columns_plain)
 from pydsproutines_tpu_torch.ops.hopper.fused_caf3 import (caf3_peak,
                                                            caf3_peak_plain)
 from pydsproutines_tpu_torch.ops.detection import (BurstDetector,
@@ -38,13 +41,14 @@ from pydsproutines_tpu_torch.ops.filters import (fir_upfirdn_planes_flat,
 from pydsproutines_tpu_torch.ops.groupxcorr import (GroupXcorrCZT,
                                                     select_group_caf_path)
 from pydsproutines_tpu_torch.ops.hopper.group_caf import (group_caf,
-                                                          group_caf_plain)
+                                                          group_caf_plain,
+                                                          group_caf_staged,
+                                                          tf32_planes)
 from pydsproutines_tpu_torch.ops.hopper.sliding import (
     sliding_multiply_normalised, sliding_multiply_normalised_reference,
     sliding_plain)
 from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (caf_peak,
-                                                            caf_peak_plain,
-                                                            split_tables)
+                                                            caf_peak_plain)
 from pydsproutines_tpu_torch.ops.hopper.medfilt import (medfilt_kernel,
                                                         medfilt_plain)
 from pydsproutines_tpu_torch.ops.hopper.upfirdn import (get_upfirdn_size,
@@ -173,7 +177,8 @@ def test_caf3_kernel_matches_twin(cuda, n, offsets, rx_tail):
 
 
 @pytest.mark.parametrize("factors", [(100, 128), (64, 64), (1000, 1000),
-                                     (32, 16, 16), (8, 8, 8, 8)])
+                                     (32, 16, 16), (8, 8, 8, 8), (2, 4099),
+                                     (16, 8000)])
 def test_stage2_peak_kernel_matches_twin(cuda, factors):
     n = int(np.prod(factors))
     rng = np.random.default_rng(n)
@@ -183,28 +188,31 @@ def test_stage2_peak_kernel_matches_twin(cuda, factors):
     for r, k in enumerate(bins):
         x[r] += 40.0 * np.exp(2j * np.pi * k * np.arange(n) / n)
     f1 = leading_stages_plain(torch.from_numpy(x).to(cuda), list(factors))
-    tw, w2 = (torch.from_numpy(t).to(cuda) for t in peak_consts(factors))
+    tw = torch.from_numpy(peak_consts(factors)[0]).to(cuda)
     before = stage2_peak.launches
-    km, kb = stage2_peak(f1, tw, w2, factors)
-    pm, pb = stage2_peak_plain(f1, tw, w2, factors)
+    km, kb = stage2_peak(f1, tw, factors)
+    pm, pb = stage2_peak_plain(f1, tw, factors)
+    sm, sb = stage2_staged(f1, tw, factors)
     torch.cuda.synchronize()
     assert stage2_peak.launches == before + 1
     assert float(((km - pm).abs() / pm).max()) < 1e-4
-    assert kb.tolist() == pb.tolist() == bins
+    assert float(((km - sm).abs() / sm).max()) < 1e-5
+    assert kb.tolist() == pb.tolist() == sb.tolist() == bins
 
 
 def test_stage2_peak_ties_go_to_the_lowest_bin(cuda):
-    """Equal magnitudes at true bins 3 + 4*1 = 7 and 1 + 4*2 = 9 (K1 = 4):
-    both versions return bin 7, though bin 9's row comes first."""
+    """Spectra exactly 8 at true bins 1 + 4*2 = 9 (row 1: i^t) and
+    3 + 4*0 = 3 (row 3: all ones), K1 = 4, J = 8: both versions return
+    bin 3, though bin 9's row comes first."""
     k1, j = 4, 8
     f1 = torch.zeros((1, k1, j), dtype=torch.complex64)
-    f1[0, 1, 2] = 1.0
-    f1[0, 3, 1] = 1.0j
+    f1[0, 1] = torch.from_numpy((1j ** np.arange(j)).astype(np.complex64))
+    f1[0, 3] = 1.0
     tw = torch.ones((k1, j), dtype=torch.complex64)
-    w2 = torch.eye(j, dtype=torch.complex64)
-    got = stage2_peak(f1.to(cuda), tw.to(cuda), w2.to(cuda))
-    ref = stage2_peak_plain(f1, tw, w2)
-    assert int(got[1][0]) == int(ref[1][0]) == 7
+    got = stage2_peak(f1.to(cuda), tw.to(cuda))
+    ref = stage2_peak_plain(f1, tw)
+    assert float(got[0][0]) == 64.0
+    assert int(got[1][0]) == int(ref[1][0]) == 3
 
 
 @pytest.mark.parametrize("n", [4096, 1_000_000])
@@ -214,22 +222,22 @@ def test_peak_sweep_matches_twin(cuda, n):
     cc, rx = _planted(rng, n, int(offsets[-1]) + n, int(offsets[9]), n // 5)
     cc, rx = cc.to(cuda), rx.to(cuda)
     offs = torch.from_numpy(offsets).to(cuda)
-    n1, n2 = best_two_factor(n)
-    w1 = split_tables(n1, n2, cuda)[0]
-    s1 = window_stage1(rx, cc, w1, offs, n1, n2)
-    s1p = window_stage1_plain(rx, cc, w1, offs, n1, n2)
+    s1 = window_columns(rx, cc, offs)
+    s1p = window_columns_plain(rx, cc, offs)
     torch.cuda.synchronize()
     assert float((s1 - s1p).abs().max() / s1p.abs().max()) < 1e-5
-    before = stage2_peak.launches
+    before = (stage2_peak.launches, window_columns.launches)
     km, kb = peak_sweep(rx, cc, offs, 128)
     pm, pb = caf3_peak_plain(rx, cc, offs, 128)
-    assert stage2_peak.launches > before
+    assert stage2_peak.launches > before[0]
+    assert window_columns.launches > before[1]
     _hold(km, kb, pm, pb, 9, n // 5)
 
 
 @pytest.mark.parametrize("n,shifts,route", [
     (2**21, list(range(8)), "fused3-hopper"),
-    (4096, [0, 2, 3, 7, 30, 31], "peak-kernel-hopper"),
+    (65536, [0, 2, 3, 7, 30, 31], "peak-kernel-hopper"),
+    (4096, [0, 2, 3, 7, 30, 31], "fused3-hopper"),   # one block: one pass
 ])
 def test_fast_xcorr_routes_launch_and_match_cpu(cuda, n, shifts, route):
     rng = np.random.default_rng(n + len(shifts))
@@ -462,6 +470,35 @@ def test_group_caf_kernel_matches_twin(cuda, g, m, k, lengths, offsets):
     assert group_caf.splits >= 1
     assert int(torch.argmax(gmax)) == int(torch.argmax(rmax)) == i_star
     assert int(torch.argmax(got[i_star])) == f_star
+
+
+@pytest.mark.parametrize("g,m,k,offsets", [
+    (3, 256, 64, [-300, -5, 0, 2, 100]),
+    (2, 1000, 37, list(range(0, 300, 7))),
+])
+def test_group_caf_kernel_matches_staged(cuda, g, m, k, offsets):
+    """The kernel against its own arithmetic in torch (3xTF32 splits, exact
+    products, f32 sums in another order and the tensor cores' own
+    accumulation within each 32-deep stage): within 2e-5 of each row's
+    maximum (~1.1e-6 against the twin on an H100), over presplit planes
+    and over a tfold it splits itself, bit-equal between the two."""
+    rng = np.random.default_rng(g + m + k)
+    starts = np.arange(g) * (m + 11)
+    rxlen = offsets[-1] + int(starts[-1]) + m
+    tf = (rng.standard_normal((g * m, k))
+          + 1j * rng.standard_normal((g * m, k))).astype(np.complex64)
+    rx = (rng.standard_normal(rxlen) + 1j * rng.standard_normal(rxlen)
+          ).astype(np.complex64)
+    rx_d, offs, st, tf_d = (torch.from_numpy(a).to(cuda) for a in (
+        rx, np.array(offsets), starts, tf))
+    planes = tf32_planes(tf_d)
+    got = group_caf(rx_d, offs, st, tf_d, k, planes)
+    again = group_caf(rx_d, offs, st, tf_d, k)
+    ref = group_caf_staged(rx_d, offs, st, planes, m, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    rmax = ref.max(1).values
+    assert float(((got - ref).abs() / rmax[:, None]).max()) < 2e-5
 
 
 def test_group_xcorr_czt_routes_to_the_kernel(cuda):

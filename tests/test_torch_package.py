@@ -47,7 +47,8 @@ def test_no_source_file_imports_jax():
     (4096, 3, "fused-hopper"),
     (4099, 1, "plain"),                  # prime: no two-factor split
     (4099, None, "plain"),
-    (1024, None, "peak-kernel-hopper"),  # non-uniform shifts
+    (1024, None, "fused3-hopper"),       # a listed window of one block
+    (65536, None, "peak-kernel-hopper"),  # non-uniform shifts, two passes
     (1_000_000, None, "peak-kernel-hopper"),
     (10_000_000, 1, "fused3-hopper"),    # 200 x 200 x 250
     (10_000_000, None, "fused3-hopper"),
@@ -59,8 +60,12 @@ def test_xcorr_router_on_cuda(n, step, path):
     assert got == path, reason
     if path == "fused-hopper" and n < 4096:
         assert "gate does not apply" in reason
-    if path == "fused3-hopper":
+    if path == "fused3-hopper" and n >= 2**21:
         assert "lane rule" in reason and "x" in reason
+    if path == "fused3-hopper" and n < 2**21:
+        assert "one-pass" in reason and "two passes" in reason
+    if path == "peak-kernel-hopper":
+        assert "twiddle on load" in reason
     if path == "plain":
         assert "no two-factor split" in reason
 
@@ -101,7 +106,10 @@ def test_kernel_launch_without_cuda_raises():
                                    torch.arange(4), 4)
     f1 = torch.zeros((2, 4, 8), dtype=x.dtype)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        fft_peak._stage2_peak_cuda(f1, f1[0], f1[0, 0:8], (4, 8))
+        fft_peak._stage2_peak_cuda(f1, f1[0], (4, 8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        group_caf._group_caf_cuda(x, torch.arange(4), torch.arange(2),
+                                  torch.zeros((16, 4), dtype=x.dtype), 4)
     with pytest.raises(RuntimeError):
         _build.library()
     assert [c.launches for c in counters] == before
@@ -121,8 +129,9 @@ def test_wrappers_refuse_other_devices():
         fft_peak.peak_sweep(x, x[:64], offs)
     f1 = torch.zeros((2, 4, 8), dtype=torch.complex64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        fft_peak.stage2_peak(f1, f1[0], torch.zeros((8, 8), device="meta",
-                                                    dtype=torch.complex64))
+        fft_peak.stage2_peak(f1, f1[0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        fft_peak.window_columns(x, x[:64], offs)
 
 
 def test_build_sources_are_the_package_csrc():
@@ -130,8 +139,8 @@ def test_build_sources_are_the_package_csrc():
     assert names == ["fft_peak.cu", "fused_caf3.cu", "fused_xcorr.cu",
                      "group_caf.cu", "medfilt.cu", "sliding.cu", "upfirdn.cu",
                      "wola_fused.cu"]
-    assert [p.name for p in _build.headers()] == ["cgemm.cuh",
-                                                  "fft_smem.cuh"]
+    assert [p.name for p in _build.headers()] == ["fft_smem.cuh",
+                                                  "peak.cuh"]
     text = "".join(p.read_text() for p in _build.sources() + _build.headers())
     assert "torch/extension.h" not in text
     assert "cufft" not in text.lower() and "cublas" not in text.lower()
@@ -146,7 +155,7 @@ def test_build_digest_covers_the_headers(tmp_path, monkeypatch):
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = _build._digest()
-    header = tmp_path / "cgemm.cuh"
+    header = tmp_path / "peak.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build._digest() != before
 

@@ -104,3 +104,34 @@ def test_wola_rejects_bad_geometry():
         wola(h, x, 8, 24)                    # N not Dec or 2*Dec
     with pytest.raises(ValueError):
         wola(h, x, 16, 16)                   # taps not a multiple of N
+
+
+@pytest.mark.parametrize("dec,n,taps,rows", [
+    (32, 64, 512, 300),           # N == 2*Dec: complex taps stay complex
+    (4, 8, 32, 101),
+    (64, 64, 512, 300),           # N == Dec: their real part, as JAX takes
+    (16, 16, 128, 200),
+])
+def test_wola_complex_taps_match_jax(rng, dec, n, taps, rows):
+    """Complex taps (a lowpass shifted by a quarter of a channel) through
+    ``ops.wola.wola`` and the JAX ``wola`` on the CPU, within RTOL; no
+    complex-to-real cast warning on the port's side."""
+    import warnings
+
+    h = (sps.firwin(taps, 1.0 / dec)
+         * np.exp(0.5j * np.pi * np.arange(taps) / dec)).astype(np.complex64)
+    x = _cplx(rng, rows * dec)
+    ref = np.asarray(jax_wola(jnp.asarray(h), jnp.asarray(x), dec, n))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = wola(torch.from_numpy(h), torch.from_numpy(x), dec, n).numpy()
+    assert got.shape == ref.shape == (rows, n)
+    assert _rel(got, ref) < RTOL
+    if n == dec:                  # the imaginary part is dropped
+        real = wola(torch.from_numpy(h.real.copy()), torch.from_numpy(x),
+                    dec, n).numpy()
+        np.testing.assert_array_equal(got, real)
+    else:                         # and kept: real taps give another answer
+        real = wola(torch.from_numpy(h.real.copy()), torch.from_numpy(x),
+                    dec, n).numpy()
+        assert _rel(real, ref) > 1e-2
