@@ -21,15 +21,20 @@
    route against torch.fft; upfirdn through ``fir_upfirdn_planes_flat`` at
    the JAX bench's chain (4,194,304 complex samples, 128 FIR and 95
    resampler taps, up 5, down 4: 730 combined taps), and the median filter
-   at 4,194,304 float32 samples with k = 129 (bit-equal), each also against
-   scipy at a reduced size; the group CAF at the JAX bench's group-xcorr
+   at 4,194,304 float32 samples with k = 129 (bit-equal; its tile route, a
+   core sort shared by 16 outputs and a select, with its key compares beside
+   a running median's), each also against scipy at a reduced size; the group CAF at the JAX bench's group-xcorr
    cell (8 groups of 4096 samples every 16,384, 128 CZT bins of fs/16384,
    1024 shifts of an rx of 119,872 samples, a copy planted at shift 517 and
    bin 70), on the uniform sweep and on a sorted list of 128 of its shifts
    (a 3xTF32 product on the tensor cores, wgmma, over the tone bank split
    at plan build);
    the sliding normalised matched filter at 4,194,304 samples x 4 templates
-   of 1024 with one template planted, and against numpy at a reduced size.
+   of 1024 with one template planted (overlap-save on the shared-memory
+   FFT, no segment re-checked), against numpy at a reduced size, and on a
+   burst-edge scene (-40 dB noise around a 20,000-sample burst holding the
+   template, a run of zeros) where the segments at the burst's edges are
+   re-checked by the kernel's masked direct launch (their count printed).
 3. Drives the main path through the public entry points, with every kernel's
    launch count set to 0 first: ``WidebandReceiver(64 ch, 2048 taps,
    template 1024, 256 shifts).run`` on an 8,388,608-sample wideband scene
@@ -58,8 +63,10 @@
    >= 3), each line tagged with the card's name and power limit; and
    computes each kernel's bound: the larger of the fewest operations that
    compute its function (its own algorithm's or an FFT formulation's,
-   whichever is fewer; both are printed) over the f32 peak and its bytes
-   (each input read once, each output written once) over the HBM rate.
+   whichever is fewer; both are printed) over the f32 peak (the median
+   filter: key compares, its plan's or a running median's 2 ceil(log2 k)
+   an output, over the int32 rate) and its bytes (each input read once,
+   each output written once) over the HBM rate.
    The CAF kernels' own count is their plan's (``ops/fft.plan_flop``; for
    the last-stage peak kernel its row plan's); the group CAF's is the f32
    count of its product, which it runs as three TF32 passes.
@@ -108,8 +115,10 @@ GROUP_QF2_ATOL = 4e-6
 #   kernel test's bound, tests/test_extras.py:317).
 SLIDING_RTOL = 1e-5
 
-# One H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores and HBM.
+# One H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores and HBM;
+# 32-bit integer operations issue at half the f32 FMA rate.
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+INT32_OPS = F32_FLOPS / 2
 
 NCH, TAPS, ROWS = 64, 2048, 131072
 # the JAX _kernel_direct shapes (N = Dec = 128, 256; 8 taps a channel), the
@@ -131,6 +140,13 @@ G_STAR, G_BIN = 517, 70                  # planted shift and CZT bin
 G_LIST, G_CPU = 128, 64                  # shift-list length; CPU check span
 N_SL, T_SL, L_SL = 4_194_304, 4, 1024    # sliding: chain length, templates
 SL_T, SL_S = 2, 1_234_567                # planted template and shift
+# the sliding filter's burst-edge scene: a 20,000-sample burst from SLB_AT
+# holding template SL_T at SLB_AT + SLB_OFF, zeros from SLB_ZEROS. The
+# burst starts 1100 samples into the overlap-save route's segment 650 (3073
+# shifts a segment at L = 1024), so that segment's quiet windows sit beside
+# ~3000 burst samples: an energy ratio ~3e4, past the re-check's limit.
+SLB_AT, SLB_OFF, SLB_ZEROS, SLB_ZLEN = 650 * 3073 + 1100, 9000, 3_000_000, \
+    6000
 BURSTS = (20000, 60000, 100000)          # channel-rate burst positions
 EDGE_MARGIN = 16                         # detected edge vs planted burst
 SEARCH = 64                              # xcorr shifts either side of an edge
@@ -170,14 +186,15 @@ def ols_flop(n_out: int, taps: int, filters: int) -> float:
 
 
 def bound(algorithm_flop: float, fft_form_flop: float,
-          nbytes: float) -> dict:
+          nbytes: float, rate: float = F32_FLOPS) -> dict:
     """The least time one H100 could take for a kernel's function: the
-    larger of the fewest f32 operations that compute it (its own
-    algorithm's, ``algorithm_flop``, or an FFT formulation's, whichever is
-    fewer) over the f32 peak, and the bytes it must move (each input read
-    once, each output written once) over the HBM rate."""
+    larger of the fewest operations that compute it (its own algorithm's,
+    ``algorithm_flop``, or another formulation's, ``fft_form_flop``,
+    whichever is fewer) over their peak ``rate`` (f32, or INT32_OPS for
+    integer compares), and the bytes it must move (each input read once,
+    each output written once) over the HBM rate."""
     flop = min(algorithm_flop, fft_form_flop)
-    t_ops, t_bytes = flop / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops, t_bytes = flop / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_flop": flop, "algorithm_flop": algorithm_flop,
@@ -334,6 +351,46 @@ def burst_scene(n_wide: int, template_len: int, seed: int, device):
             torch.from_numpy(rx.astype(np.complex64)).to(device))
 
 
+def burst_edge_scene(seed, n, t, length, plant_t, burst_at, plant_off,
+                     zeros_at, zeros_len, noise_db=-40.0, burst_len=20_000):
+    """(x, templates) complex64 numpy: noise at ``noise_db`` around a
+    unit-power burst of ``burst_len`` samples holding template ``plant_t``
+    at burst_at + plant_off, and a run of zeros. The quiet windows beside
+    the burst's edges are where an FFT correlation's rounding, which scales
+    with a segment's energy, is largest against a window's own energy."""
+    rng = np.random.default_rng(seed)
+    sig = 10 ** (noise_db / 20) / np.sqrt(2)
+    x = sig * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    tm = (rng.standard_normal((t, length))
+          + 1j * rng.standard_normal((t, length))) / np.sqrt(2)
+    b = (rng.standard_normal(burst_len)
+         + 1j * rng.standard_normal(burst_len)) / np.sqrt(2)
+    b[plant_off: plant_off + length] = tm[plant_t]
+    x[burst_at: burst_at + burst_len] += b
+    x[zeros_at: zeros_at + zeros_len] = 0
+    return x.astype(np.complex64), tm.astype(np.complex64)
+
+
+def sliding_scene():
+    """(x, templates) complex64 numpy of the sliding filter's stationary
+    scene: unit noise, T_SL random templates of L_SL, template SL_T planted
+    at 4x amplitude at shift SL_S."""
+    srng = np.random.default_rng(5)
+    x = (srng.standard_normal(N_SL) + 1j * srng.standard_normal(N_SL)
+         ).astype(np.complex64)
+    tm = (srng.standard_normal((T_SL, L_SL))
+          + 1j * srng.standard_normal((T_SL, L_SL))).astype(np.complex64)
+    x[SL_S: SL_S + L_SL] += 4 * tm[SL_T]
+    return x, tm
+
+
+def sliding_burst_scene():
+    """The sliding filter's burst-edge scene at N_SL (``burst_edge_scene``):
+    the planted template at (SL_T, SLB_AT + SLB_OFF)."""
+    return burst_edge_scene(6, N_SL, T_SL, L_SL, SL_T, SLB_AT, SLB_OFF,
+                            SLB_ZEROS, SLB_ZLEN)
+
+
 def detection_chain(chan, template, rx):
     """The burst-detection front end through the public entry points:
     channelise, strongest channel, median-filtered power, histogram
@@ -395,10 +452,12 @@ def main() -> int:
     from pydsproutines_tpu_torch.ops.hopper.group_caf import (
         _group_caf_cuda, group_caf, group_caf_plain)
     from pydsproutines_tpu_torch.ops.hopper.medfilt import (medfilt_kernel,
-                                                            medfilt_plain)
+                                                            medfilt_plain,
+                                                            medfilt_plan)
     from pydsproutines_tpu_torch.ops.hopper.sliding import (
-        _sliding_cuda, sliding_multiply_normalised,
-        sliding_multiply_normalised_reference, sliding_plain)
+        FLAG_RATIO, _sliding_cuda, select_sliding_path,
+        sliding_multiply_normalised, sliding_multiply_normalised_reference,
+        sliding_plain, sliding_plan)
     from pydsproutines_tpu_torch.ops.hopper.upfirdn import (
         upfirdn_planes, upfirdn_planes_plain)
     from pydsproutines_tpu_torch.ops.hopper.wola_fused import (wola_fused,
@@ -609,8 +668,22 @@ def main() -> int:
           "medfilt kernel vs scipy not bit-equal")
     med_ms = median_ms(lambda: medfilt_kernel(xm, MED_K), reps=5)
     med_plain_ms = median_ms(lambda: medfilt_plain(xm, MED_K), reps=3)
-    print(f"medfilt {N_MED} x k={MED_K}: kernel {med_ms:.4f} ms, plain "
-          f"{med_plain_ms:.4f} ms, bit-equal to the twin and (at {N_SMALL}) "
+    med_plan = medfilt_plan(MED_K)
+    med_route = select_medfilt_path(1, torch.float32, dev, MED_K)
+    check(med_plan["route"] == "tile" and "tile-shared" in med_route[1],
+          f"medfilt route {med_route}")
+    # bound: bytes, or the fewest compares of a running median (a sorted
+    # window's insert and delete, 2 ceil(log2 k) an output) at the int32
+    # issue rate; the kernel's own count is its plan's
+    m_bound = bound(med_plan["compares"] * N_MED,
+                    2 * math.ceil(math.log2(MED_K)) * N_MED, 8 * N_MED,
+                    INT32_OPS)
+    print(f"medfilt {N_MED} x k={MED_K}: kernel {med_ms:.4f} ms ({med_route[0]}"
+          f": {med_route[1]}; {med_plan['compares']:.0f} key compares an "
+          f"output, {m_bound['algorithm_flop']:.4g} in all, vs "
+          f"{m_bound['bound_flop']:.4g} for a running median), plain "
+          f"{med_plain_ms:.4f} ms, bound {m_bound['bound_ms']:.4f} ms "
+          f"({m_bound['bound_by']}), bit-equal to the twin and (at {N_SMALL}) "
           f"to scipy {tag}")
 
     # the group CAF at the bench's group-xcorr cell: the uniform sweep, then
@@ -676,14 +749,12 @@ def main() -> int:
           f"{G_STAR} bin {G_BIN} {tag}")
 
     # the sliding matched filter at the resampling chain's length
-    srng = np.random.default_rng(5)
-    x_sl = (srng.standard_normal(N_SL) + 1j * srng.standard_normal(N_SL)
-            ).astype(np.complex64)
-    t_sl = (srng.standard_normal((T_SL, L_SL))
-            + 1j * srng.standard_normal((T_SL, L_SL))).astype(np.complex64)
-    x_sl[SL_S: SL_S + L_SL] += 4 * t_sl[SL_T]
+    x_sl, t_sl = sliding_scene()
     xs_d, ts_d = torch.from_numpy(x_sl).to(dev), torch.from_numpy(t_sl).to(dev)
+    sl_route = select_sliding_path(N_SL, T_SL, L_SL, torch.complex64, dev)
+    check(sl_route[0] == "sliding-ols-hopper", f"sliding route {sl_route}")
     got_s = sliding_multiply_normalised(xs_d, ts_d)
+    sl_flagged = int(sliding_multiply_normalised.flagged)
     ref_s = sliding_plain(xs_d, ts_d)
     torch.cuda.synchronize()
     ns_sl = N_SL - L_SL + 1
@@ -699,6 +770,26 @@ def main() -> int:
     truth = sliding_multiply_normalised_reference(x_sl[:N_SMALL], t_sl)
     check(np.abs(small - truth).max() / np.abs(truth).max() < SLIDING_RTOL,
           "sliding kernel vs numpy")
+    check(sl_flagged == 0, f"stationary scene: {sl_flagged} segments "
+                           f"re-checked")
+    # the burst-edge scene: the segments whose quiet windows sit beside the
+    # burst's edges are re-checked, computed by the masked direct launch
+    xb, tb = (torch.from_numpy(a).to(dev) for a in sliding_burst_scene())
+    got_b = sliding_multiply_normalised(xb, tb)
+    slb_flagged = int(sliding_multiply_normalised.flagged)
+    ref_b = sliding_plain(xb, tb)
+    torch.cuda.synchronize()
+    slb_abs = float((got_b - ref_b).abs().max())
+    bi, bs = np.unravel_index(int(torch.argmax(got_b)), got_b.shape)
+    check(got_b.shape == (T_SL, ns_sl) and bool(torch.isfinite(got_b).all())
+          and slb_abs < SLIDING_RTOL and (bi, bs) == (SL_T, SLB_AT + SLB_OFF)
+          and slb_flagged >= 1
+          and float(got_b[:, SLB_ZEROS: SLB_ZEROS + SLB_ZLEN - L_SL + 1]
+                    .abs().max()) == 0.0,
+          f"sliding burst-edge scene: QF^2 max|d| {slb_abs:.3e}, peak at "
+          f"{(bi, bs)}, {slb_flagged} segments re-checked")
+    slb_ms = median_ms(lambda: _sliding_cuda(xb, tb), reps=5)
+    del got_b, ref_b, xb, tb
     sl_ms = median_ms(lambda: _sliding_cuda(xs_d, ts_d), reps=5)
     sl_plain_ms = median_ms(lambda: sliding_plain(xs_d, ts_d), reps=3)
     # cuDNN's conv1d of the re/im planes: the complex correlation (not its
@@ -710,15 +801,23 @@ def main() -> int:
                           reps=5)
     # FFT formulation: overlap-save over the templates, the window energies
     # as a running sum (4 per sample) and the normalisation (3 per output)
-    sl_bound = bound(8.0 * T_SL * L_SL * ns_sl,
+    # (the kernel's own count: its overlap-save plan's, ops/hopper/sliding)
+    sl_plan = sliding_plan(N_SL, T_SL, L_SL)
+    sl_bound = bound(sl_plan["ols_flop"],
                      ols_flop(ns_sl, L_SL, T_SL) + 4.0 * N_SL
                      + 3.0 * T_SL * ns_sl,
                      8 * N_SL + 8 * T_SL * L_SL + 4 * T_SL * ns_sl)
     print(f"sliding {N_SL} x {T_SL} templates of {L_SL}: kernel {sl_ms:.4f} "
-          f"ms, plain {sl_plain_ms:.4f} ms, cuDNN conv1d {sl_lib_ms:.4f} ms, "
-          f"bound {sl_bound['bound_ms']:.4f} ms ({sl_bound['bound_by']}); "
-          f"rel err "
-          f"{sl_err:.3e}; vs numpy at {N_SMALL} within {SLIDING_RTOL} {tag}")
+          f"ms ({sl_route[0]}: {sl_route[1]}; {sl_flagged} segments "
+          f"re-checked), plain {sl_plain_ms:.4f} ms, cuDNN conv1d "
+          f"{sl_lib_ms:.4f} ms, bound {sl_bound['bound_ms']:.4f} ms "
+          f"({sl_bound['bound_by']}; {sl_bound['algorithm_flop']:.4g} f32 "
+          f"operations its plan's, {sl_bound['bound_flop']:.4g} the fewest); "
+          f"rel err {sl_err:.3e}; vs numpy at {N_SMALL} within {SLIDING_RTOL};"
+          f" burst-edge scene {slb_ms:.4f} ms, QF^2 max|d| {slb_abs:.3e}, "
+          f"{slb_flagged} segments re-checked by the direct product "
+          f"(energy ratio > {FLAG_RATIO:g}), peak at ({SL_T}, "
+          f"{SLB_AT + SLB_OFF}) {tag}")
     del ref_s, x_ri
 
     # 3) the main path, through the public entry points ------------------------
@@ -799,6 +898,8 @@ def main() -> int:
     check(q_sl.shape == (T_SL, ns_sl) and (sti, ssi) == (SL_T, SL_S)
           and torch.equal(q_sl, got_s),
           f"sliding_multiply_normalised peak at {(sti, ssi)}")
+    print(f"sliding_multiply_normalised route: {sl_route[0]} ({sl_route[1]});"
+          f" medfilt route in the detection chain: {med_route[0]}")
     cpu_span = torch.arange(G_STAR - G_CPU // 2, G_STAR + G_CPU // 2)
     q_cpu, _ = gx_cpu.xcorr(rx_g.cpu(), cpu_span)
     g_cpu_err = float((qg[cpu_span].cpu() - q_cpu).abs().max())
@@ -940,9 +1041,6 @@ def main() -> int:
     f_bound = bound(2.0 * 2 * n_fir_out * -(-h64.size // UP),
                     ols_flop(N_FIR, -(-h64.size // UP), UP),
                     8 * (N_FIR + n_fir_out) + 4 * h64.size)
-    # integer compare steps are not f32 work: bytes alone
-    m_bound = bound(0.0, 0.0, 8 * N_MED)
-
     def costs(b, lib):
         return {**b, "library_ms": lib}
 
@@ -1000,7 +1098,10 @@ def main() -> int:
          "shape": f"{N_MED} float32, k={MED_K}",
          "launches": launches["medfilt_kernel"], "max_abs_err": med_abs,
          "ms": med_ms, "plain_ms": med_plain_ms,
-         **costs(m_bound, med_plain_ms)},
+         **costs(m_bound, med_plain_ms),
+         "library": "unfold + torch.median (the twin)",
+         "kernel_route": med_plan["route"], "tile_c": med_plan["c"],
+         "compares_per_output": med_plan["compares"]},
         {"name": "group_caf", "route": "cuda",
          "source": "pydsproutines_tpu_torch/csrc/group_caf.cu",
          "replaces": "pydsproutines_tpu/ops/pallas/group_caf.py:46",
@@ -1018,7 +1119,13 @@ def main() -> int:
          "shape": f"{N_SL} samples x {T_SL} templates of {L_SL}",
          "launches": sliding_launches["sliding_multiply_normalised"],
          "max_abs_err": sl_abs, "ms": sl_ms, "plain_ms": sl_plain_ms,
-         **costs(sl_bound, sl_lib_ms)},
+         **costs(sl_bound, sl_lib_ms),
+         "library": "cuDNN conv1d of the planes, TF32 off",
+         "kernel_route": sl_route[0], "nfft": sl_plan["nfft"],
+         "segments": sl_plan["segments"],
+         "rechecked_segments": sl_flagged,
+         "burst_edge": {"ms": slb_ms, "max_abs_err": slb_abs,
+                        "rechecked_segments": slb_flagged}},
     ], "receiver_step_ms": step_ms, "detection_chain_ms": det_ms,
         "resampling_chain_ms": fir_chain_ms, "group_xcorr_ms": gx_ms,
         "group_xcorr_gsample_shift_per_s": gx_rate,

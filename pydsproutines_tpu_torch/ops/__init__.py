@@ -25,7 +25,7 @@ from pydsproutines_tpu_torch.ops.groupxcorr import (GroupXcorr,
                                                     TemplateCrossCorrelator,
                                                     select_group_caf_path)
 from pydsproutines_tpu_torch.ops.hopper.sliding import (
-    sliding_multiply_normalised)
+    select_sliding_path, sliding_multiply_normalised)
 from pydsproutines_tpu_torch.ops.multicorr import MultiPreambleCorrelator
 from pydsproutines_tpu_torch.ops.spectral import (CZT, IntegerMultipleFFT,
                                                   burst_fft, czt, dft,
@@ -55,7 +55,7 @@ __all__ = ["get_eye_opening", "lock_phase", "map_syms", "best_two_factor",
            "burst_fft", "MultiPreambleCorrelator", "GroupXcorrCZTPermutations",
            "GroupXcorr", "GroupXcorrCZT", "GroupXcorrFFT",
            "TemplateCrossCorrelator", "select_group_caf_path",
-           "sliding_multiply_normalised", "czt_xcorr",
+           "sliding_multiply_normalised", "select_sliding_path", "czt_xcorr",
            "fine_freq_time_search", "make_time_scan_steervec",
            "convert_qf2_to_snr", "convert_eff_snr_to_qf2",
            "expected_eff_snr", "sigma_dto", "sigma_dfo",

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from pydsproutines_tpu_torch.ops.hopper.medfilt import (medfilt_kernel,
-                                                        medfilt_plain)
+                                                        medfilt_plain,
+                                                        medfilt_plan)
 from pydsproutines_tpu_torch.ops.hopper.upfirdn import (get_upfirdn_size,
                                                         upfirdn_planes)
 from pydsproutines_tpu_torch.utils.device import resolve_device
@@ -90,8 +91,19 @@ def select_medfilt_path(ndim: int, dtype: torch.dtype, device,
         how = "32 key bits"
     else:
         how = "32 key bits, filtered as float32 and cast back (exact)"
-    return "medfilt-hopper", (f"1-D {dtype}, k={kernel_size}: Hopper "
-                              f"radix-select kernel, {how}, any odd k")
+    plan = medfilt_plan(kernel_size, 8 if dtype == torch.float64 else 4)
+    if plan["route"] == "tile":
+        method = (f"tile-shared sort and select, C={plan['c']} outputs a "
+                  f"tile share a sorted core of {kernel_size - plan['c'] + 1}"
+                  f" keys, {plan['smem']} B of shared memory a block")
+    else:
+        method = (f"{plan['route']} select: a tile's core of about "
+                  f"{kernel_size} keys is past one warp's sort, so each "
+                  f"output walks its key bits over its window"
+                  + (" read from device memory"
+                     if plan["route"] == "radix-unstaged" else ""))
+    return "medfilt-hopper", (f"1-D {dtype}, k={kernel_size}: Hopper median "
+                              f"kernel, {how}, any odd k; {method}")
 
 
 # ---------------------------------------------------------------------------

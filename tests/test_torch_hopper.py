@@ -18,8 +18,11 @@ max (the kernel's 3xTF32 products, f32 sums of G*m of them in another
 order), the planted shift and bin exact, and against
 ``group_caf_staged``, its own arithmetic in torch, within 2e-5 of each
 row's maximum (the tensor cores' accumulation in another order); the
-last-stage peak kernel within 1e-5 of ``stage2_staged``; sliding QF^2 max|d| < 1e-5 on its 0..1 scale (f32 window energies
-summed in the kernel vs the twin's float64 window sums).
+last-stage peak kernel within 1e-5 of ``stage2_staged``; sliding QF^2
+max|d| < 1e-5 on its 0..1 scale (f32 window energies summed in the kernel
+vs the twin's float64 window sums), and the overlap-save route within 1e-6
+of ``sliding_staged``, its schedule in torch over the same tables (f32
+rounding in another order); medfilt routes bit-equal to ``medfilt_staged``.
 The plain twins' matrix products run in full f32 (TF32 off).
 """
 
@@ -371,6 +374,55 @@ def test_medfilt_kernel_matches_twin(cuda, n, k, dtype):
                               sps.medfilt(x64, k))
 
 
+@pytest.mark.parametrize("n,k,dtype", [
+    (1001, 129, torch.float32),                # n % C != 0
+    (1003, 9, torch.float32), (1003, 7, torch.float32),   # k = C +- 1
+    (999, 1, torch.float32), (999, 1, torch.float64),
+    (4097, 1023, torch.float64),               # 1008 core keys, 32 a lane
+    (3001, 1039, torch.float32),               # 1024 core keys: the most
+    (3000, 20_001, torch.float32),             # radix, staged
+    (3000, 60_001, torch.float32),             # radix, unstaged
+])
+def test_medfilt_kernel_routes_and_tile_edges(cuda, n, k, dtype):
+    """Each route of select_medfilt_path and the tile's edges, against the
+    twin, the CPU emulation of the kernel's schedule and scipy."""
+    from pydsproutines_tpu_torch.ops.filters import select_medfilt_path
+    from pydsproutines_tpu_torch.ops.hopper.medfilt import (medfilt_plan,
+                                                            medfilt_staged)
+    rng = np.random.default_rng(n * k)
+    x = torch.from_numpy(rng.standard_normal(n)).to(cuda, dtype)
+    x[::5] = 0.0
+    plan = medfilt_plan(k, x.element_size())
+    path, reason = select_medfilt_path(1, dtype, cuda, k)
+    assert path == "medfilt-hopper" and (
+        f"C={plan['c']}" in reason if plan["route"] == "tile"
+        else plan["route"] in reason)
+    got = medfilt_kernel(x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, medfilt_plain(x, k))
+    if n * k <= 1 << 23:
+        assert torch.equal(got.cpu(), medfilt_staged(x.cpu(), k))
+        assert np.array_equal(got.cpu().numpy(),
+                              sps.medfilt(x.cpu().numpy(), k))
+
+
+@pytest.mark.parametrize("c", [0, 2, 4, 8, 16, 32])
+def test_medfilt_kernel_tile_widths(cuda, c):
+    """Every tile width the kernel is built for (and the radix route, c = 0)
+    gives the twin's result at the detection chain's window."""
+    from pydsproutines_tpu_torch.ops.hopper import _build
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy(rng.standard_normal(70_001).astype(np.float32)).to(
+        cuda)
+    out = torch.empty_like(x)
+    rc = _build.library().pdsp_medfilt_f32(
+        x.data_ptr(), out.data_ptr(), x.shape[0], 129, c,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"medfilt c={c}")
+    torch.cuda.synchronize()
+    assert torch.equal(out, medfilt_plain(x, 129))
+
+
 def test_medfilt_routes_on_the_card(cuda):
     rng = np.random.default_rng(6)
     x = torch.from_numpy(rng.standard_normal(2000).astype(np.float32)).to(cuda)
@@ -566,3 +618,77 @@ def test_sliding_kernel_matches_twin(cuda, n, t, length):
         truth = sliding_multiply_normalised_reference(x, tm)
         fin = np.isfinite(truth)
         assert np.abs(got.cpu().numpy()[fin] - truth[fin]).max() < 1e-5
+
+
+def _sliding_check(got, ref, truth=None):
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) < 1e-5
+    if truth is not None:
+        fin = np.isfinite(truth)
+        assert np.abs(got.cpu().numpy()[fin] - truth[fin]).max() < 1e-5
+
+
+@pytest.mark.parametrize("n,t,length,route", [
+    (100_000, 1, 1, "direct"), (100_000, 3, 48, "ols"),
+    (60_000, 2, 2048, "ols"), (30_000, 11, 300, "ols"),   # 11 in one launch
+    (2047, 2, 2047, "direct"), (2047, 2, 2047, "ols"),    # one shift
+    (50_000, 4, 1024, "ols"), (50_000, 4, 1024, "direct"),
+])
+def test_sliding_kernel_routes(cuda, n, t, length, route):
+    """Both routes against the twin, numpy, and (overlap-save) the CPU
+    emulation of its schedule; a window of zeros gives 0."""
+    from pydsproutines_tpu_torch.ops.hopper.sliding import (_sliding_cuda,
+                                                            sliding_staged)
+    rng = np.random.default_rng(n + t + length)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    tm = (rng.standard_normal((t, length))
+          + 1j * rng.standard_normal((t, length))).astype(np.complex64)
+    t_star, s_star = t - 1, (n - length) // 2
+    x[s_star: s_star + length] += 4 * tm[t_star]
+    if n > 1000 + 2 * length:
+        x[1000: 1000 + length + 5] = 0
+    xt, tt = torch.from_numpy(x).to(cuda), torch.from_numpy(tm).to(cuda)
+    before = sliding_multiply_normalised.launches
+    got = _sliding_cuda(xt, tt, route)
+    assert sliding_multiply_normalised.launches == before + 1
+    ref = sliding_plain(xt, tt)
+    torch.cuda.synchronize()
+    _sliding_check(got, ref, sliding_multiply_normalised_reference(x, tm)
+                   if n * t * length <= 1 << 25 else None)
+    if length > 1:
+        ti, si = np.unravel_index(int(torch.argmax(got)), got.shape)
+        assert (ti, si) == (t_star, s_star)
+    if n > 1000 + 2 * length:
+        assert float(got[:, 1000: 1006].abs().max()) == 0.0
+    if route == "ols":
+        emu, flagged, _ = sliding_staged(torch.from_numpy(x),
+                                         torch.from_numpy(tm))
+        assert int(sliding_multiply_normalised.flagged) == len(flagged)
+        assert float((got.cpu() - emu).abs().max()) < 1e-6
+
+
+def test_sliding_kernel_burst_edge_scene(cuda):
+    """-40 dB noise around a 20,000-sample burst holding the planted
+    template, and a run of zeros: the segments at the burst's edges go to
+    the kernel route's masked direct launch, and the result holds the twin's
+    and numpy's 1e-5."""
+    from chip_smoke import burst_edge_scene
+    from pydsproutines_tpu_torch.ops.hopper.sliding import (
+        select_sliding_path, sliding_staged)
+    x, tm = burst_edge_scene(3, 200_000, 4, 1024, 2, 70_000, 9000, 150_000,
+                             6000)
+    assert select_sliding_path(200_000, 4, 1024, torch.complex64,
+                               cuda)[0] == "sliding-ols-hopper"
+    xt, tt = torch.from_numpy(x).to(cuda), torch.from_numpy(tm).to(cuda)
+    got = sliding_multiply_normalised(xt, tt)
+    flagged = int(sliding_multiply_normalised.flagged)
+    _, emu_flagged, _ = sliding_staged(torch.from_numpy(x),
+                                       torch.from_numpy(tm))
+    assert flagged >= 1 and emu_flagged          # the re-check ran
+    _sliding_check(got, sliding_plain(xt, tt),
+                   sliding_multiply_normalised_reference(x, tm))
+    ti, si = np.unravel_index(int(torch.argmax(got)), got.shape)
+    assert (ti, si) == (2, 79_000)
+    assert float(got[:, 150_000: 155_000 - 1023].abs().max()) == 0.0

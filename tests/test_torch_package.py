@@ -266,9 +266,27 @@ def test_new_kernel_launches_without_cuda_raise():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         group_caf._group_caf_cuda(x, torch.arange(4), torch.tensor([0, 100]),
                                   torch.zeros((2 * 64, 8), dtype=x.dtype), 8)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        sliding._sliding_cuda(x, torch.ones((2, 16), dtype=x.dtype))
+    for route in (None, "ols", "direct"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            sliding._sliding_cuda(x, torch.ones((2, 16), dtype=x.dtype),
+                                  route)
     assert [c.launches for c in counters] == before
+
+
+@pytest.mark.parametrize("n,t,length,dtype,device,path", [
+    (4_194_304, 4, 1024, torch.complex64, "cuda", "sliding-ols-hopper"),
+    (4_194_304, 4, 1024, torch.complex128, "cuda", "sliding-ols-hopper"),
+    (4_194_304, 4, 1, torch.complex64, "cuda", "sliding-direct-hopper"),
+    (4_194_304, 4, 1024, torch.complex64, "cpu", "plain"),
+])
+def test_sliding_router(n, t, length, dtype, device, path):
+    from pydsproutines_tpu_torch import ops
+    got, reason = ops.select_sliding_path(n, t, length, dtype, device)
+    assert got == path, reason
+    if device == "cuda":
+        assert "complex64" in reason and "f32 operations" in reason
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.select_sliding_path(n, t, length, dtype, "meta")
 
 
 def _constructors(device=None):

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from pydsproutines_tpu.ops.pallas import sliding as js
-from pydsproutines_tpu_torch.ops import sliding_multiply_normalised
+from pydsproutines_tpu_torch.ops import (select_sliding_path,
+                                        sliding_multiply_normalised)
 from pydsproutines_tpu_torch.ops.hopper import sliding as ts
 
 
@@ -90,3 +91,40 @@ def test_sliding_signature_matches_jax():
         js.sliding_multiply_normalised).parameters)
     assert ours == theirs[:len(ours)] == ["x", "templates", "tile"]
     assert ts.MAX_TEMPLATE_LEN == js.MAX_TEMPLATE_LEN
+
+
+@pytest.mark.parametrize("n,t,length,path,why", [
+    (4_194_304, 4, 1024, "sliding-ols-hopper", "nfft=4096 (3073 shifts"),
+    (60_000, 8, 2048, "sliding-ols-hopper", "nfft=8192"),
+    (100_000, 1, 48, "sliding-ols-hopper", "nfft=1024"),
+    (30_000, 11, 300, "sliding-ols-hopper", "segments"),
+    (100_000, 1, 1, "sliding-direct-hopper", "too short"),
+    (100_000, 4, 4, "sliding-direct-hopper", "too short"),
+    (2047, 2, 2047, "sliding-direct-hopper", "too short"),    # one shift
+])
+def test_select_sliding_path(n, t, length, path, why):
+    got, reason = select_sliding_path(n, t, length, torch.complex64, "cuda")
+    assert got == path and why in reason, reason
+    plan = ts.sliding_plan(n, t, length)
+    assert (plan["route"] == "ols") == (path == "sliding-ols-hopper")
+    assert (plan["ols_flop"] < plan["direct_flop"]) == (plan["route"] == "ols")
+    assert select_sliding_path(n, t, length, torch.complex128,
+                               "cpu")[0] == "plain"
+    with pytest.raises(ValueError, match="unsupported device"):
+        select_sliding_path(n, t, length, torch.complex64, "meta")
+
+
+def test_sliding_routes_through_its_router(monkeypatch):
+    calls = []
+    real = ts.select_sliding_path
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+    monkeypatch.setattr(ts, "select_sliding_path", spy)
+    x, tm = _scene(3, 700, 2, 40, 1, 200)
+    got = sliding_multiply_normalised(torch.from_numpy(x),
+                                      torch.from_numpy(tm))
+    assert calls == [(700, 2, 40, torch.complex64, torch.device("cpu"))]
+    assert torch.equal(got, ts.sliding_plain(torch.from_numpy(x),
+                                             torch.from_numpy(tm)))
