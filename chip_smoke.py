@@ -6,9 +6,10 @@
 1. Builds the hand-written Hopper kernels from ``pydsproutines_tpu_torch/
    csrc`` (nvcc, sm_90a) and prints the build time.
 2. Checks each kernel against its plain PyTorch twin on the card at the
-   main path's shapes: the WOLA channelizer at 131,072 rows x 64 channels
-   with 2048 taps, and at N = Dec = 128 and 256 with 8 taps a channel (the
-   JAX ``_kernel_direct`` shapes); the CAF peak search (shared-memory FFT,
+   main path's shapes: the WOLA channelizer (a register fold and one
+   shared-memory FFT a row; its route and plan printed) at 131,072 rows x 64
+   channels with 2048 taps, and at N = Dec = 128 and 256 with 8 taps a
+   channel (the JAX ``_kernel_direct`` shapes); the CAF peak search (shared-memory FFT,
    its plan's passes, split and scratch printed) at n = 1,000,000 x 128
    shifts and at n = 1024 x 256 shifts on a 131,072-sample channel; the
    shift-list CAF peak search at n = 10,000,000 x 128 shifts, and at
@@ -20,7 +21,9 @@
    DFT matrix and ``torch.fft.fft`` of the twiddled rows, and that sweep's
    route against torch.fft; upfirdn through ``fir_upfirdn_planes_flat`` at
    the JAX bench's chain (4,194,304 complex samples, 128 FIR and 95
-   resampler taps, up 5, down 4: 730 combined taps), and the median filter
+   resampler taps, up 5, down 4: 730 combined taps; a register-window
+   polyphase FIR, its route and plan printed, timed beside cuDNN's
+   ``conv_transpose1d``), and the median filter
    at 4,194,304 float32 samples with k = 129 (bit-equal; its tile route, a
    core sort shared by 16 outputs and a select, with its key compares beside
    a running median's), each also against scipy at a reduced size; the group CAF at the JAX bench's group-xcorr
@@ -89,8 +92,8 @@ import numpy as np
 
 # Tolerances, with their reasons:
 # - WOLA kernel vs twin: both f32; the twin's IDFT is torch.fft, the
-#   kernel's a direct f32 sum, so they differ by summation order only:
-#   max|d| / max|ref| < 1e-5 (the CPU parity tests' bound).
+#   kernel's a shared-memory f32 FFT over f32 tables, its fold in another
+#   order: max|d| / max|ref| < 1e-5 (the CPU parity tests' bound).
 WOLA_RTOL = 1e-5
 # - CAF peak |X|^2 per shift, kernel vs twin: the kernel's shared-memory f32
 #   FFT over f32 tables vs cuFFT; relative error of each shift's maximum
@@ -207,6 +210,19 @@ def wola_bound(rows: int, nch: int, taps: int) -> dict:
     outs = rows * nch
     return bound(outs * (8.0 * nch + 4.0 * taps / nch),
                  rows * (4.0 * taps + fft_flop(nch)), 16 * outs + 4 * taps)
+
+
+def upfirdn_library_call(planes, h, up, down, n_out):
+    """The one PyTorch call that computes upfirdn of the planes: cuDNN's
+    ``conv_transpose1d`` with stride ``up`` (the full convolution of the
+    zero-stuffed planes with h), then every ``down``-th sample, cut to
+    scipy's first ``n_out``; TF32 is the caller's to turn off. Returns a
+    callable, timed here and never called by the port."""
+    import torch
+    x = torch.stack(planes)[:, None]
+    w = h[None, None]
+    return lambda: torch.nn.functional.conv_transpose1d(
+        x, w, stride=up)[:, 0, ::down][:, :n_out]
 
 
 def plan_info(launch, shifts: int) -> dict:
@@ -459,9 +475,10 @@ def main() -> int:
         sliding_multiply_normalised, sliding_multiply_normalised_reference,
         sliding_plain, sliding_plan)
     from pydsproutines_tpu_torch.ops.hopper.upfirdn import (
-        upfirdn_planes, upfirdn_planes_plain)
-    from pydsproutines_tpu_torch.ops.hopper.wola_fused import (wola_fused,
-                                                               wola_plain)
+        plan_text as upfirdn_plan_text, upfirdn_plan, upfirdn_planes,
+        upfirdn_planes_plain)
+    from pydsproutines_tpu_torch.ops.hopper.wola_fused import (
+        plan_text as wola_plan_text, wola_fused, wola_plain, wola_plan)
     from pydsproutines_tpu_torch.ops.wola import Channeliser, select_wola_path
     from pydsproutines_tpu_torch.ops.xcorr import (fast_xcorr, power_prefix,
                                                    select_xcorr_path)
@@ -502,8 +519,10 @@ def main() -> int:
     check(wola_err < WOLA_RTOL, f"WOLA kernel vs twin rel err {wola_err:.3e}")
     wola_ms = median_ms(lambda: wola_fused(h, xw, NCH), reps=5)
     wola_plain_ms = median_ms(lambda: wola_plain(h, xw, NCH, NCH), reps=5)
+    w_plan = wola_plan(NCH, TAPS // NCH)
     print(f"wola {ROWS}x{NCH} ch, {TAPS} taps: kernel {wola_ms:.4f} ms, "
-          f"plain {wola_plain_ms:.4f} ms, rel err {wola_err:.3e} {tag}")
+          f"plain {wola_plain_ms:.4f} ms, rel err {wola_err:.3e} "
+          f"({select_wola_path(NCH, NCH, dev)[1]}) {tag}")
     wola_direct = []
     for nd, taps_d, rows_d in WOLA_DIRECT:
         hd = torch.from_numpy(sps.firwin(taps_d, 1.0 / nd).astype(
@@ -516,6 +535,7 @@ def main() -> int:
               f"WOLA N={nd} kernel vs twin rel err {err_d:.3e}")
         wola_direct.append({
             "shape": f"{rows_d}x{nd} ch, {taps_d} taps",
+            "kernel_plan": wola_plan_text(wola_plan(nd, taps_d // nd)),
             "max_abs_err": float((got - ref).abs().max()),
             "ms": median_ms(lambda: wola_fused(hd, xd, nd), reps=5),
             "plain_ms": median_ms(lambda: wola_plain(hd, xd, nd, nd), reps=5),
@@ -644,13 +664,20 @@ def main() -> int:
                                               n_fir_out), reps=5)
     fir_plain_ms = median_ms(lambda: upfirdn_planes_plain(
         (fre, fim), h32, UP, DOWN, n_fir_out), reps=5)
+    # cuDNN's transposed convolution, TF32 off (set above): the yardstick
+    fir_lib = upfirdn_library_call((fre, fim), h32, UP, DOWN, n_fir_out)
+    lib_err = rel_err(fir_lib(), ref_f)
+    check(lib_err < 1e-4, f"conv_transpose1d yardstick rel err {lib_err:.3e}")
+    fir_lib_ms = median_ms(fir_lib, reps=5)
+    f_plan = upfirdn_plan(h64.size, UP, DOWN, 4, 2)   # two planes
     # the public entry point: host tap key and combination (cached) + copy
     # of the combined taps to the card + the kernel
     fir_chain_ms = median_ms(lambda: fir_upfirdn_planes_flat(
         h_fir, h_rs, fre, fim, UP, DOWN), reps=5)
     print(f"upfirdn {N_FIR} complex, {h64.size} taps, {UP}/{DOWN}: kernel "
-          f"{fir_ms:.4f} ms, plain {fir_plain_ms:.4f} ms, rel err "
-          f"{fir_err:.3e}; vs float64 scipy at {N_SMALL} within "
+          f"{fir_ms:.4f} ms ({upfirdn_plan_text(f_plan)}), plain "
+          f"{fir_plain_ms:.4f} ms, cuDNN conv_transpose1d {fir_lib_ms:.4f} "
+          f"ms, rel err {fir_err:.3e}; vs float64 scipy at {N_SMALL} within "
           f"2e-4*sqrt(T); resampling chain (fir_upfirdn_planes_flat) "
           f"{fir_chain_ms:.4f} ms {tag}")
 
@@ -1052,6 +1079,8 @@ def main() -> int:
          "shape": f"{ROWS}x{NCH} ch, {TAPS} taps",
          "launches": launches["wola_fused"], "max_abs_err": wola_abs,
          "ms": wola_ms, "plain_ms": wola_plain_ms, **costs(w_bound, None),
+         "library": "none", "kernel_route": w_plan["route"],
+         "kernel_plan": wola_plan_text(w_plan),
          "direct_shapes": wola_direct},
         {"name": "caf_peak", "route": "cuda",
          "source": "pydsproutines_tpu_torch/csrc/fused_xcorr.cu",
@@ -1091,7 +1120,12 @@ def main() -> int:
          "also_replaces": "pydsproutines_tpu/ops/pallas/upfirdn.py:209",
          "shape": f"2 planes x {N_FIR}, {h64.size} taps, up {UP} down {DOWN}",
          "launches": launches["upfirdn_planes"], "max_abs_err": fir_abs,
-         "ms": fir_ms, "plain_ms": fir_plain_ms, **costs(f_bound, None)},
+         "ms": fir_ms, "plain_ms": fir_plain_ms,
+         **costs(f_bound, fir_lib_ms),
+         "library": "cuDNN conv_transpose1d(stride=up)[..., ::down], TF32 "
+                    "off",
+         "kernel_route": f_plan["route"],
+         "kernel_plan": upfirdn_plan_text(f_plan)},
         {"name": "medfilt_kernel", "route": "cuda",
          "source": "pydsproutines_tpu_torch/csrc/medfilt.cu",
          "replaces": "pydsproutines_tpu/ops/pallas/medfilt.py:32",

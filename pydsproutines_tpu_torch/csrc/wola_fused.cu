@@ -8,61 +8,149 @@
 //   out[r, k]     = sum_a dft_in[r, a] * exp(+2*pi*i*a*k/N)
 //   dft_in[r, a]  = sum_b x[r*N - b*N - a] * h[b*N + a],   x = 0 before 0,
 //
-// for r in [0, rows), a, k in [0, N), b in [0, B), B = len(h)/N.
+// for r in [0, rows), a, k in [0, N), b in [0, B), B = len(h)/N. With xq = x
+// viewed as (rows, N), x[(r-b)N - a] is xq[r-b, 0] for a == 0 and
+// xq[r-b-1, N-a] for a >= 1: the fold is a B-tap FIR down each column of xq.
 //
-// Design (simple first version). One block owns R consecutive output rows.
-// It stages in shared memory the taps h, the N-point twiddle table and the
-// R + B input rows the fold reaches back to (rows before 0 are zeros), so
-// every input sample leaves device memory once per block and every output
-// is stored once, coalesced. Threads then fold over (row, phase): with
-// xq = x viewed as (rows, N), x[(r-b)N - a] is xq[r-b, 0] for a == 0 and
-// xq[r-b-1, N-a] for a >= 1. The folded rows stay in shared memory for the
-// IDFT, which threads compute over (row, channel) as a direct N-point sum
-// against the shared twiddle table (index a*k mod N kept as a running sum).
-// The TPU kernel's pair-row layout existed for the TPU's 128-lane tiles and
-// is not carried over. Any B >= 1 and N whose tile fits shared memory.
+// Design (wola_fold_fft). A block owns a chunk of rc rows (rc = 8 rows a
+// run times max(1, 256/N) runs, so rc*N ~ 2048 points):
 //
-// What bounds it on the H100: the memory floor is 16 bytes per sample
-// (8 in, 8 out: 128 MB at 8M samples, ~40 us at 3.35 TB/s), so the kernel is
-// designed around one read and one write. The arithmetic is 2B FMAs per
-// sample for the fold and 4N for the direct IDFT in f32 on the CUDA cores:
-// at N = 64, B = 32 that is 320 FMAs per sample, about as long at the
-// f32 peak as the memory floor. A factored IDFT or tensor cores would put
-// the kernel back under the memory floor; that is later work.
+//   1. fold in registers: a thread owns one column a and a run of WM = 8
+//      consecutive output rows; it holds KB taps of its column and WM
+//      accumulators in registers and streams its column of xq down the WM +
+//      KB - 1 rows the run reaches, so each loaded value feeds up to KB
+//      accumulators (B > KB: the taps in chunks of KB, zero past B).
+//      Consecutive threads take consecutive columns, so a warp's loads are
+//      one contiguous segment of a row. The run's result goes, conjugated,
+//      to the line's digit-reversed slot in shared memory (line stride N|1);
+//   2. IDFT by fft_smem.cuh's fft_lines: one N-point line FFT a row, radices
+//      of ops/fft.radix_plan, twiddles from the host's f32 table of float64
+//      phases; the inverse by conjugation, N*IDFT(d) = conj(FFT(conj(d))),
+//      so no scaling;
+//   3. the rows, conjugated back, stored coalesced; rows past `rows` (the
+//      last chunk's tail) are neither read nor stored.
+//
+// A run re-reads the B - 1 rows of history before it; they come from L1/L2
+// (the neighbouring runs of the block read them), so device memory sees each
+// input row about once. Indices into device memory are 64-bit.
+//
+// What bounds it on the H100: bytes. 16 bytes a sample move (8 in, 8 out:
+// 134 MB at 8M samples, 40 us at 3.35 TB/s). At N = 64, B = 32 the fold is
+// 1.07 GFLOP (16 us at the f32 peak, ~0.15 L1 loads per complex-by-real
+// FMA pair) and the FFT ~0.25 GFLOP; the shared-memory tile of a chunk is
+// ~16 KB, so several blocks share an SM at every N the port runs.
+//
+// wola_direct_kernel is this kernel's first version (a direct N-point IDFT
+// sum from shared memory, 4N FMAs an output), kept whole for
+// scripts/exp_wola.py's same-call comparison; the port does not call it.
 
-#include <cuda_runtime.h>
+#include "fft_smem.cuh"
 
 namespace {
 
+// Blocks an SM the register budget is cut for: 2 ran faster than 1, 3 and
+// 4 at N = 64 on the H100 (3 and 4 spill the 32-tap instance;
+// scripts/exp_wola.py --variants builds others).
+#ifndef WOLA_MIN_BLOCKS
+#define WOLA_MIN_BLOCKS 2
+#endif
+
 constexpr int kThreads = 256;
 constexpr int kMaxSmem = 227 * 1024;
+constexpr int WM = 8;                 // output rows of a thread's run
 
-__device__ __forceinline__ void cmac(float2& c, float2 a, float2 b) {
-  c.x = fmaf(a.x, b.x, c.x);
-  c.x = fmaf(-a.y, b.y, c.x);
-  c.y = fmaf(a.x, b.y, c.y);
-  c.y = fmaf(a.y, b.x, c.y);
+// The taps of column a, chunk c (KB of them, zero past B), into hk.
+template <int KB>
+__device__ __forceinline__ void load_taps(float (&hk)[KB],
+                                          const float* __restrict__ taps,
+                                          int n, int nb, int a, int c) {
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+    const int b = c * KB + kb;
+    hk[kb] = b < nb ? __ldg(taps + (size_t)b * n + a) : 0.f;
+  }
 }
 
-// Shared-memory layout of one block: taps (L floats, padded to an even count
-// so the float2 arrays after it stay 8-byte aligned), the (R + B, N) input
-// tile, the (R, N) folded rows and the N twiddles.
+template <int KB>
+__global__ void __launch_bounds__(kThreads, WOLA_MIN_BLOCKS)
+wola_fold_fft(const float2* __restrict__ x, const float* __restrict__ taps,
+              const float2* __restrict__ wl, const int* __restrict__ rev,
+              float2* __restrict__ out, long long rows, int n, int nb,
+              LinePlan lp, int rc, int generic) {
+  extern __shared__ float2 tile[];
+  const int S = line_stride(n), tid = threadIdx.x;
+  float2* tmp = generic ? tile + (size_t)rc * S : tile;
+  const int items = n * (rc / WM), nbc = (nb + KB - 1) / KB;
+  const FastDiv by_n(n);
+  const long long r0 = (long long)blockIdx.x * rc;
+  float hk[KB];
+  // 1. fold: item = (run, column a)
+  for (int it = tid; it < items; it += kThreads) {
+    const int run = by_n.div(it), a = it - run * n;
+    const int col = a == 0 ? 0 : n - a;
+    // xq row of output row r0 + run*WM, tap 0
+    const long long rbase = r0 + run * WM - (a == 0 ? 0 : 1);
+    float2 acc[WM];
+#pragma unroll
+    for (int m = 0; m < WM; ++m) acc[m] = make_float2(0.f, 0.f);
+    for (int c = 0; c < nbc; ++c) {
+      load_taps<KB>(hk, taps, n, nb, a, c);
+      // input i of this chunk is xq row q0 + i; output m takes it with
+      // tap c*KB + kb where m = i - (KB - 1) + kb
+      const long long q0 = rbase - (long long)c * KB - (KB - 1);
+#pragma unroll
+      for (int i = 0; i < WM + KB - 1; ++i) {
+        const long long q = q0 + i;
+        const float2 v = (q >= 0 && q < rows) ? __ldg(x + q * n + col)
+                                              : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int kb = 0; kb < KB; ++kb) {
+          const int m = i - (KB - 1) + kb;
+          if (m >= 0 && m < WM) {
+            acc[m].x = fmaf(hk[kb], v.x, acc[m].x);
+            acc[m].y = fmaf(hk[kb], v.y, acc[m].y);
+          }
+        }
+      }
+    }
+    const int slot = __ldg(rev + a);
+#pragma unroll
+    for (int m = 0; m < WM; ++m)
+      tile[(size_t)(run * WM + m) * S + slot] =
+          make_float2(acc[m].x, -acc[m].y);
+  }
+  __syncthreads();
+  // 2. N * IDFT of each row = conj(FFT(conj(row)))
+  fft_lines(tile, tmp, rc, S, lp, wl);
+  // 3. store the chunk's rows
+  const long long left = rows - r0;
+  const int valid = left < rc ? (int)left : rc;
+  for (int e = tid; e < valid * n; e += kThreads) {
+    const int r = by_n.div(e), k = e - r * n;
+    const float2 v = tile[(size_t)r * S + k];
+    out[(r0 + r) * n + k] = make_float2(v.x, -v.y);
+  }
+}
+
+// ---------------------------------------------- the first version, kept whole
+
 __host__ __device__ inline size_t taps_floats(int n, int nb) {
   return ((size_t)n * nb + 1) & ~(size_t)1;
 }
 
-inline size_t smem_bytes(int n, int nb, int r) {
+inline size_t direct_smem_bytes(int n, int nb, int r) {
   return 4 * taps_floats(n, nb) +
          8 * ((size_t)(r + nb) * n + (size_t)r * n + n);
 }
 
 __global__ void __launch_bounds__(kThreads)
-wola_fused_kernel(const float2* __restrict__ x, const float* __restrict__ taps,
-                  const float2* __restrict__ tw, float2* __restrict__ out,
-                  int rows, int n, int nb, int rpb) {
-  extern __shared__ float smem[];
-  float* h = smem;
-  float2* tile = reinterpret_cast<float2*>(smem + taps_floats(n, nb));
+wola_direct_kernel(const float2* __restrict__ x,
+                   const float* __restrict__ taps,
+                   const float2* __restrict__ tw, float2* __restrict__ out,
+                   int rows, int n, int nb, int rpb) {
+  extern __shared__ float direct_smem[];
+  float* h = direct_smem;
+  float2* tile = reinterpret_cast<float2*>(direct_smem + taps_floats(n, nb));
   float2* folded = tile + (size_t)(rpb + nb) * n;
   float2* w = folded + (size_t)rpb * n;
 
@@ -121,25 +209,87 @@ wola_fused_kernel(const float2* __restrict__ x, const float* __restrict__ taps,
   }
 }
 
+template <int KB>
+int launch_fold_fft(const float2* x, const float* taps, const float2* wl,
+                    const int* rev, float2* out, long long rows, int n,
+                    int nb, const LinePlan& lp, int rc, int generic,
+                    size_t smem, cudaStream_t st) {
+  return (int)launch(wola_fold_fft<KB>, (rows + rc - 1) / rc, kThreads, smem,
+                     st, x, taps, wl, rev, out, rows, n, nb, lp, rc, generic);
+}
+
 }  // namespace
 
-// x: (>= rows*n,) complex64; taps: (nb*n,) float32; tw: (n,) complex64 with
-// tw[m] = exp(+2*pi*i*m/n); out: (rows, n) complex64. Returns a cudaError_t.
-extern "C" int pdsp_wola_fused(const void* x, const void* taps, const void* tw,
-                               void* out, int rows, int n, int nb,
+// x: (>= rows*n,) complex64; taps: (nb*n,) float32; wl: the N-point line
+// table of ops/fft.line_table over the nr radices (host ints, stage order;
+// nr = 0 for N = 1); rev: (n,) int32 digit reversal; out: (rows, n)
+// complex64. kb: taps a thread holds (1, 2, 4, 8, 16 or 32); rc: rows a
+// block (a multiple of 8, max(1, 256/n) runs). Returns a cudaError_t.
+extern "C" int pdsp_wola_fused(const void* x, const void* taps,
+                               const void* wl, const void* rev, void* out,
+                               long long rows, int n, int nb,
+                               const int* radices, int nr, int kb, int rc,
                                void* stream) {
+  if (rows <= 0 || n <= 0 || nb <= 0 || nr < 0 || nr > MAX_RADICES ||
+      rc < WM || rc % WM)
+    return (int)cudaErrorInvalidValue;
+  LinePlan lp;
+  lp.L = n;
+  lp.nr = nr;
+  long long prod = 1;
+  bool generic = false;
+  for (int i = 0; i < nr; ++i) {
+    const int r = radices[i];
+    if (r < 2) return (int)cudaErrorInvalidValue;
+    lp.r[i] = r;
+    prod *= r;
+    generic |= !(r == 2 || r == 3 || r == 4 || r == 5 || r == 8);
+  }
+  if (prod != n) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)rc * line_stride(n) * sizeof(float2) *
+                      (generic ? 2 : 1);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const float2* xp = static_cast<const float2*>(x);
+  const float* tp = static_cast<const float*>(taps);
+  const float2* wp = static_cast<const float2*>(wl);
+  const int* rp = static_cast<const int*>(rev);
+  float2* op = static_cast<float2*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int g = generic ? 1 : 0;
+  switch (kb) {
+#define PDSP_WOLA_KB(K)                                                  \
+    case K:                                                              \
+      return launch_fold_fft<K>(xp, tp, wp, rp, op, rows, n, nb, lp, rc, g, \
+                                smem, st);
+    PDSP_WOLA_KB(1)
+    PDSP_WOLA_KB(2)
+    PDSP_WOLA_KB(4)
+    PDSP_WOLA_KB(8)
+    PDSP_WOLA_KB(16)
+    PDSP_WOLA_KB(32)
+#undef PDSP_WOLA_KB
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The first version (direct IDFT), for scripts/exp_wola.py: tw (n,)
+// complex64 with tw[m] = exp(+2*pi*i*m/n). Returns a cudaError_t.
+extern "C" int pdsp_wola_direct(const void* x, const void* taps,
+                                const void* tw, void* out, int rows, int n,
+                                int nb, void* stream) {
   if (rows <= 0 || n <= 0 || nb <= 0) return (int)cudaErrorInvalidValue;
   // largest row tile (<= 32) whose shared-memory footprint fits the SM
   int rpb = 32;
-  while (rpb > 1 && smem_bytes(n, nb, rpb) > (size_t)kMaxSmem) rpb /= 2;
-  const size_t smem = smem_bytes(n, nb, rpb);
+  while (rpb > 1 && direct_smem_bytes(n, nb, rpb) > (size_t)kMaxSmem)
+    rpb /= 2;
+  const size_t smem = direct_smem_bytes(n, nb, rpb);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      wola_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wola_direct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (rows + rpb - 1) / rpb;
-  wola_fused_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  wola_direct_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const float2*>(x), static_cast<const float*>(taps),
       static_cast<const float2*>(tw), static_cast<float2*>(out), rows, n, nb,
       rpb);

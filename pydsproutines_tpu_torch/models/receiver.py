@@ -117,7 +117,8 @@ class WidebandReceiver(nn.Module):
         dev = rx_ri.device
         path, reason = select_xcorr_path(self.template_len, torch.complex64,
                                          1, dev)
-        wpath, wreason = select_wola_path(self.num_channels, self.dec, dev)
+        wpath, wreason = select_wola_path(self.num_channels, self.dec, dev,
+                                          self.f_tap.shape[-1])
         qf2 = float(qf2)
         return {
             "qf2_peak": qf2,

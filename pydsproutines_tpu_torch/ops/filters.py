@@ -39,7 +39,10 @@ from pydsproutines_tpu_torch.ops.hopper.medfilt import (medfilt_kernel,
                                                         medfilt_plain,
                                                         medfilt_plan)
 from pydsproutines_tpu_torch.ops.hopper.upfirdn import (get_upfirdn_size,
+                                                        upfirdn_plan,
                                                         upfirdn_planes)
+from pydsproutines_tpu_torch.ops.hopper.upfirdn import \
+    plan_text as upfirdn_plan_text
 from pydsproutines_tpu_torch.utils.device import resolve_device
 from pydsproutines_tpu_torch.utils.dtypes import real_dtype_for, to_tensor
 from pydsproutines_tpu_torch.utils.fftlen import next_fast_len
@@ -66,10 +69,14 @@ def select_upfirdn_path(n: int, taps_len: int, up: int, down: int,
         return "plain", f"{device.type} tensor: plain torch twin"
     rdt = _work_real_dtype(dtype)
     n_out = get_upfirdn_size(n, taps_len, up, down)
+    pair = dtype.is_complex and rdt == torch.float32
+    plan = upfirdn_plan(taps_len, up, down, 8 if rdt == torch.float64 else 4,
+                        2 if pair else 1)
     return "upfirdn-hopper", (
         f"n={n} -> n_out={n_out}, {taps_len} taps, up={up}, down={down}, "
-        f"{rdt} planes: Hopper upfirdn kernel, any tap length; the TPU "
-        f"kernel's gate (n_out >= 2*128*cols, <= 2 planes) does not apply")
+        f"{rdt} planes: Hopper upfirdn kernel, any tap length, "
+        f"{upfirdn_plan_text(plan)}; the TPU kernel's gate (n_out >= "
+        f"2*128*cols, <= 2 planes) does not apply")
 
 
 def select_medfilt_path(ndim: int, dtype: torch.dtype, device,

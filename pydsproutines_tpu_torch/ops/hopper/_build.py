@@ -38,15 +38,18 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signature of every entry point: (argtypes, restype)
 _SIGNATURES = {
-    "pdsp_wola_fused": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "pdsp_wola_fused": ([_P] * 5 + [_L, _I, _I, _P] + [_I] * 3 + [_P], _I),
+    "pdsp_wola_direct": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "pdsp_caf_peak": ([_P] * 9 + [_L, _I, _I, _P], _I),
     "pdsp_stage2_peak": ([_P] * 9 + [_I, _I, _P, _I, _P], _I),
     "pdsp_window_cols": ([_P] * 7 + [_I, _P], _I),
     "pdsp_caf3_peak": ([_P] * 10 + [_I, _P], _I),
-    "pdsp_upfirdn_f32": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_P] + [_I] * 3
+    "pdsp_upfirdn_f32": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_P] + [_I] * 9
                          + [_P], _I),
-    "pdsp_upfirdn_f64": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_P] + [_I] * 3
+    "pdsp_upfirdn_f64": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_P] + [_I] * 9
                          + [_P], _I),
+    "pdsp_upfirdn_v1_f32": ([_P] * 4 + [_I] * 2 + [_L] * 6 + [_P]
+                            + [_I] * 3 + [_P], _I),
     "pdsp_medfilt_f32": ([_P, _P, _L, _I, _I, _P], _I),
     "pdsp_medfilt_f64": ([_P, _P, _L, _I, _I, _P], _I),
     "pdsp_group_caf": ([_P, _L, _P, _I, _P, _I, _I, _P, _I, _I, _P, _L, _P,

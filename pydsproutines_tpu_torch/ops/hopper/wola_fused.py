@@ -7,8 +7,13 @@ replaces ``pydsproutines_tpu/ops/pallas/wola_fused.py:_kernel`` and
     out[r, k] = sum_a dft_in[r, a] * exp(+2*pi*i*a*k/N)
     dft_in[r, a] = sum_b x[r*N - b*N - a] * h[b*N + a],   x = 0 before 0.
 
-It is built for the memory floor (one read, one write: 128 MB at 8M
-samples); the source note says what its direct f32 IDFT costs on top.
+Its schedule (``wola_plan``): a block owns a chunk of ``rc`` rows; a thread
+folds one column over a run of ``RUN`` = 8 rows in registers, with ``kb``
+taps of its column held at a time (the B taps in chunks of kb, zero past
+B), into the row's digit-reversed slot; then one shared-memory line FFT a
+row (``csrc/fft_smem.cuh``, the radices of ``ops/fft.radix_plan``) takes the
+N * IDFT as conj(FFT(conj(.))). ``wola_staged`` runs that schedule in torch
+over the kernel's own tables, for the tests.
 
 ``wola_fused`` routes by the tensor's device: a CPU tensor takes the plain
 twin ``wola_plain``; a CUDA tensor launches the kernel or raises.
@@ -16,13 +21,21 @@ twin ``wola_plain``; a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
+from pydsproutines_tpu_torch.ops.fft import (digit_reversal, fft_staged,
+                                             line_table, radix_plan)
 from pydsproutines_tpu_torch.ops.hopper import _build
 from pydsproutines_tpu_torch.utils.dtypes import real_dtype_for
+
+# the kernel's threads a block, output rows a thread's run, the taps a
+# thread may hold in registers, and a block's shared-memory limit
+THREADS, RUN, MAX_KB, MAX_SMEM = 256, 8, 32, 227 * 1024
+FAST_RADICES = (2, 3, 4, 5, 8)
 
 
 def wola_plain(f_tap: torch.Tensor, x: torch.Tensor, dec: int,
@@ -53,6 +66,80 @@ def wola_plain(f_tap: torch.Tensor, x: torch.Tensor, dec: int,
     return torch.fft.ifft(acc, dim=-1) * n
 
 
+@functools.lru_cache(maxsize=64)
+def wola_plan(n: int, nb: int) -> dict:
+    """The kernel's schedule for N = ``n`` channels and B = ``nb`` taps a
+    channel: ``radices`` of the row FFT (none at N = 1), ``kb`` taps a
+    thread holds (the power of two >= B, at most MAX_KB), ``tap_chunks``
+    (ceil(B / kb)), ``rc`` rows a chunk (RUN rows times max(1, THREADS // n)
+    runs), ``smem`` bytes a block (the chunk's rows at line stride n|1,
+    twice for a generic radix) and the ``route`` name. Raises ValueError
+    when a chunk does not fit shared memory."""
+    if n < 1 or nb < 1:
+        raise ValueError(f"WOLA plan needs N >= 1 and B >= 1 (got {n}, {nb})")
+    radices = radix_plan(n) if n > 1 else ()
+    kb = min(MAX_KB, 1 << (nb - 1).bit_length())
+    rc = RUN * max(1, THREADS // n)
+    generic = any(r not in FAST_RADICES for r in radices)
+    smem = rc * (n | 1) * 8 * (2 if generic else 1)
+    if smem > MAX_SMEM:
+        raise ValueError(f"N={n}: a chunk of {rc} rows needs {smem} B of "
+                         f"shared memory (> {MAX_SMEM})")
+    return {"route": "fold-fft", "radices": radices, "kb": kb,
+            "tap_chunks": -(-nb // kb), "rc": rc, "smem": smem,
+            "generic": generic}
+
+
+def plan_text(plan: dict) -> str:
+    """One line naming the route and its plan, for routers and logs."""
+    rad = "x".join(map(str, plan["radices"])) or "none (N = 1)"
+    return (f"register fold ({plan['kb']} taps a thread, "
+            f"{plan['tap_chunks']} chunk(s), runs of {RUN} rows) + "
+            f"shared-memory FFT (radices {rad}), {plan['rc']} rows a chunk, "
+            f"{plan['smem']} B of shared memory")
+
+
+def fold_sources(n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fold's index map: column a of the folded row r reads, at tap b,
+    xq[r - b - shift[a], col[a]] with xq = x viewed as (rows, n): column 0
+    and no shift for a == 0, column n - a one row back for a >= 1."""
+    a = torch.arange(n)
+    return torch.where(a == 0, 0, n - a), (a != 0).long()
+
+
+def wola_staged(f_tap: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
+    """The kernel's schedule in torch, for complex64 x and real taps: per
+    run of RUN rows and column a, the tap chunks of kb taps, and in each the
+    RUN + kb - 1 rows of xq the run reaches (zero before row 0 and from row
+    ``rows`` on), each added to the accumulators it feeds; then the
+    conjugated fold through ``ops/fft.fft_staged`` over the kernel's line
+    table and radices, conjugated back. Returns (len(x)//n, n)."""
+    rows, nb = x.shape[-1] // n, f_tap.shape[-1] // n
+    plan = wola_plan(n, nb)
+    kb = plan["kb"]
+    rpad = -(-rows // plan["rc"]) * plan["rc"]
+    xq = x[: rows * n].reshape(rows, n)
+    h = torch.zeros(plan["tap_chunks"] * kb, n, dtype=torch.float32)
+    h[:nb] = f_tap.to(torch.float32).reshape(nb, n)
+    col, shift = fold_sources(n)
+    run0 = torch.arange(0, rpad, RUN)[:, None]               # (runs, 1)
+    acc = torch.zeros(rpad // RUN, RUN, n, dtype=x.dtype)
+    for c in range(plan["tap_chunks"]):
+        hk = h[c * kb: (c + 1) * kb]                          # (kb, n)
+        q0 = run0 - shift[None, :] - c * kb - (kb - 1)        # (runs, n)
+        for i in range(RUN + kb - 1):
+            q = q0 + i
+            ok = (q >= 0) & (q < rows)
+            v = torch.where(ok, xq[q.clamp(0, max(rows - 1, 0)), col], 0)
+            lo, hi = max(0, i - kb + 1), min(RUN, i + 1)      # outputs fed
+            taps = hk[kb - 1 - i + lo: kb - 1 - i + hi]       # m - i + kb - 1
+            acc[:, lo:hi] += taps[None] * v[:, None, :]
+    rad = plan["radices"]
+    wl = torch.from_numpy(line_table(n, rad))
+    y = fft_staged(acc.reshape(rpad, n).conj().resolve_conj(), rad, wl)
+    return y[:rows].conj().resolve_conj()
+
+
 def _check(f_tap: torch.Tensor, x: torch.Tensor, n: int) -> None:
     if f_tap.ndim != 1 or f_tap.is_complex():
         raise ValueError("wola_fused takes real 1-D taps")
@@ -81,10 +168,13 @@ wola_fused.launches = 0
 
 
 @functools.lru_cache(maxsize=8)
-def _idft_twiddles(n: int, device: torch.device) -> torch.Tensor:
-    m = np.arange(n, dtype=np.float64)
-    return torch.from_numpy(
-        np.exp(2j * np.pi * m / n).astype(np.complex64)).to(device)
+def _tables(n: int, device: torch.device):
+    """(line table, digit reversal, radices as C ints) of the N-point row
+    FFT, on ``device``."""
+    rad = wola_plan(n, 1)["radices"]
+    wl = torch.from_numpy(line_table(n, rad)).to(device)
+    rev = torch.from_numpy(digit_reversal(n, rad)).to(device)
+    return wl, rev, (ctypes.c_int * max(1, len(rad)))(*rad)
 
 
 def _wola_fused_cuda(f_tap: torch.Tensor, x: torch.Tensor,
@@ -95,18 +185,39 @@ def _wola_fused_cuda(f_tap: torch.Tensor, x: torch.Tensor,
                          f"taps (got {x.dtype}, {f_tap.dtype})")
     if not (x.is_contiguous() and f_tap.is_contiguous()):
         raise ValueError("the WOLA kernel takes contiguous tensors")
-    rows = x.shape[-1] // n
-    if rows * n >= 2**31:
-        raise ValueError("input too long for 32-bit row indexing")
+    rows, nb = x.shape[-1] // n, f_tap.shape[-1] // n
+    plan = wola_plan(n, nb)
     out = torch.empty((rows, n), dtype=torch.complex64, device=x.device)
     if rows == 0:
         return out
-    tw = _idft_twiddles(n, x.device)
+    wl, rev, rad = _tables(n, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pdsp_wola_fused(x.data_ptr(), f_tap.data_ptr(),
-                                 tw.data_ptr(), out.data_ptr(), rows, n,
-                                 f_tap.shape[-1] // n, stream)
-    _build.check(rc, f"wola_fused launch (rows={rows}, n={n})")
+        rc = lib.pdsp_wola_fused(
+            x.data_ptr(), f_tap.data_ptr(), wl.data_ptr(), rev.data_ptr(),
+            out.data_ptr(), rows, n, nb, ctypes.addressof(rad),
+            len(plan["radices"]), plan["kb"], plan["rc"], stream)
+    _build.check(rc, f"wola_fused launch (rows={rows}, n={n}, B={nb})")
     wola_fused.launches += 1
+    return out
+
+
+def wola_direct_cuda(f_tap: torch.Tensor, x: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """The kernel's first version (a direct IDFT sum), kept in
+    ``csrc/wola_fused.cu`` for ``scripts/exp_wola.py``'s same-call
+    comparison; the port's routes never call it."""
+    lib = _build.library()
+    _check(f_tap, x, n)
+    rows = x.shape[-1] // n
+    if rows * n >= 2**31:
+        raise ValueError("the first version indexes rows in 32 bits")
+    m = np.arange(n, dtype=np.float64)
+    tw = torch.from_numpy(np.exp(2j * np.pi * m / n).astype(
+        np.complex64)).to(x.device)
+    out = torch.empty((rows, n), dtype=torch.complex64, device=x.device)
+    rc = lib.pdsp_wola_direct(x.data_ptr(), f_tap.data_ptr(), tw.data_ptr(),
+                              out.data_ptr(), rows, n, f_tap.shape[-1] // n,
+                              torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"wola direct launch (rows={rows}, n={n})")
     return out

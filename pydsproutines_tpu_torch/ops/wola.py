@@ -18,16 +18,24 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pydsproutines_tpu_torch.ops.hopper.wola_fused import wola_fused, wola_plain
+from pydsproutines_tpu_torch.ops.hopper.wola_fused import (plan_text,
+                                                           wola_fused,
+                                                           wola_plain,
+                                                           wola_plan)
 from pydsproutines_tpu_torch.utils.device import resolve_device
 from pydsproutines_tpu_torch.utils.freq import make_freq
 
 
-def select_wola_path(n: int, dec: int, device) -> tuple[str, str]:
-    """The routing decision of ``wola``: (path, reason)."""
+def select_wola_path(n: int, dec: int, device,
+                     taps: int | None = None) -> tuple[str, str]:
+    """The routing decision of ``wola``: (path, reason). On the kernel's
+    route the reason names its plan for ``taps`` taps (default 32 a
+    channel)."""
     device = torch.device(device)
     if n == dec and device.type == "cuda":
-        return "fused-hopper", f"N == Dec == {n}: Hopper WOLA kernel"
+        nb = max(1, (taps or 32 * n) // n)
+        return "fused-hopper", (f"N == Dec == {n}: Hopper WOLA kernel, "
+                                f"{plan_text(wola_plan(n, nb))}")
     if n == dec:
         return "plain", f"{device.type} tensor: plain torch twin"
     return "plain", f"N == 2*Dec ({n} = 2*{dec}): plain torch, odd-row flip"

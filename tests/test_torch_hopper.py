@@ -10,7 +10,7 @@ Tolerances are chip_smoke.py's: WOLA max|d|/max|ref| < 1e-5; CAF per-shift
 peak |X|^2 rtol 1e-4 with the planted shift and bin exact (at a noise-only
 shift the top two bins can lie within f32 rounding, so only the planted
 shift's bin is held exact); upfirdn max|d|/max|ref| < 1e-5 against the twin
-in float32 (f32 FMA chains of up to a few hundred taps against a full-f32
+and ``upfirdn_staged`` (its schedule in torch) in float32 (f32 FMA chains of up to a few hundred taps against a full-f32
 matrix product), 1e-9 absolute in float64, and
 ``tests/test_filters.py``'s scipy bound; medfilt bit-equal (``torch.equal``);
 group CAF |C|^2 per-shift peak rtol 1e-4 and the grid within 1e-4 of its
@@ -23,7 +23,8 @@ max|d| < 1e-5 on its 0..1 scale (f32 window energies summed in the kernel
 vs the twin's float64 window sums), and the overlap-save route within 1e-6
 of ``sliding_staged``, its schedule in torch over the same tables (f32
 rounding in another order); medfilt routes bit-equal to ``medfilt_staged``.
-The plain twins' matrix products run in full f32 (TF32 off).
+The WOLA kernel is also held within 1e-5 of ``wola_staged``, its schedule
+in torch. The plain twins' matrix products run in full f32 (TF32 off).
 """
 
 import numpy as np
@@ -54,10 +55,17 @@ from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (caf_peak,
                                                             caf_peak_plain)
 from pydsproutines_tpu_torch.ops.hopper.medfilt import (medfilt_kernel,
                                                         medfilt_plain)
+from pydsproutines_tpu_torch.ops.filters import select_upfirdn_path
 from pydsproutines_tpu_torch.ops.hopper.upfirdn import (get_upfirdn_size,
+                                                        upfirdn_plan,
                                                         upfirdn_planes,
-                                                        upfirdn_planes_plain)
-from pydsproutines_tpu_torch.ops.hopper.wola_fused import wola_fused, wola_plain
+                                                        upfirdn_planes_plain,
+                                                        upfirdn_staged)
+from pydsproutines_tpu_torch.ops.hopper.wola_fused import (wola_fused,
+                                                           wola_plain,
+                                                           wola_plan,
+                                                           wola_staged)
+from pydsproutines_tpu_torch.ops.wola import select_wola_path
 from pydsproutines_tpu_torch.ops.xcorr import fast_xcorr
 
 pytestmark = pytest.mark.gpu
@@ -88,6 +96,37 @@ def test_wola_kernel_matches_twin(cuda, n, taps, rows):
     assert wola_fused.launches == before + 1
     assert got.shape == (rows, n)
     assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("n,nb,rows", [
+    (1, 8, 700), (8, 2, 333), (12, 8, 250), (60, 2, 101), (64, 32, 1001),
+    (64, 1, 77), (128, 8, 129), (256, 8, 40), (256, 8, 32768), (7, 3, 90),
+    (64, 33, 500), (1024, 2, 20),
+])
+def test_wola_kernel_routes_and_geometries(cuda, n, nb, rows):
+    """N with prime factors (12, 60, a generic 7), N = 1, B from 1 to 33,
+    rows that leave a ragged last chunk, N = 256 at 2048 taps at its real
+    length: the kernel against the twin and against ``wola_staged``, one
+    launch, the route named by the router."""
+    rng = np.random.default_rng(n * 100 + nb + rows)
+    h = torch.from_numpy(rng.standard_normal(n * nb).astype(np.float32))
+    x = torch.from_numpy((rng.standard_normal(rows * n + n // 2)
+                          + 1j * rng.standard_normal(rows * n + n // 2))
+                         .astype(np.complex64))
+    before = wola_fused.launches
+    got = wola_fused(h.to(cuda), x.to(cuda), n)
+    torch.cuda.synchronize()
+    assert wola_fused.launches == before + 1
+    assert got.shape == (rows, n)
+    ref = wola_plain(h, x, n, n)
+    assert float((got.cpu() - ref).abs().max() / ref.abs().max()) < 1e-5
+    if rows <= 2000:
+        staged = wola_staged(h, x, n)
+        assert float((got.cpu() - staged).abs().max()
+                     / staged.abs().max()) < 1e-5
+    path, reason = select_wola_path(n, n, cuda, n * nb)
+    assert path == "fused-hopper" and wola_plan(n, nb)["route"] == "fold-fft"
+    assert "register fold" in reason and "shared-memory FFT" in reason
 
 
 @pytest.mark.parametrize("n,step,nshifts,batch", [
@@ -286,6 +325,65 @@ def test_upfirdn_kernel_matches_twin(cuda, up, down, taps):
                         down)
     np.testing.assert_allclose(got.cpu().numpy(), truth,
                                atol=2e-4 * np.sqrt(taps), rtol=1e-4)
+
+
+@pytest.mark.parametrize("up,down,taps,n,n_out,layout", [
+    (1, 1, 33, 5000, None, "complex"), (1, 4, 257, 9000, None, "complex"),
+    (5, 4, 730, 20_000, None, "complex"), (4, 5, 95, 7777, None, "separate"),
+    (3, 1, 2, 3001, None, "complex"),        # taps < up
+    (7, 3, 130, 4000, 9000, "complex"),      # n_out past the full length
+    (5, 4, 730, 20_000, 12_345, "separate"),  # n_out override, cut
+    (2, 3, 16, 1, None, "complex"), (8, 7, 5, 300, None, "stride2"),
+    (1, 1, 30_000, 3000, None, "complex"),   # unstaged: taps past the budget
+])
+def test_upfirdn_kernel_routes_and_edges(cuda, up, down, taps, n, n_out,
+                                         layout):
+    """The register-window routes at the phase ratios, both edges, the
+    n_out override, two planes as float2 (the parts of a complex64 tensor,
+    read as one; separate planes; strided planes) and the unstaged route: against the twin, against
+    ``upfirdn_staged`` (the same schedule in torch) and against float64
+    scipy, with one launch and the plan's route."""
+    rng = np.random.default_rng(up * 1000 + down * 10 + taps + n)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    h = rng.standard_normal(taps).astype(np.float32)
+    ht = torch.from_numpy(h).to(cuda)
+    if layout == "complex":
+        xt = torch.from_numpy(x).to(cuda)
+        planes = (xt.real, xt.imag)
+    elif layout == "separate":
+        planes = tuple(torch.from_numpy(np.ascontiguousarray(p)).to(cuda)
+                       for p in (x.real, x.imag))
+    else:                                     # every other sample of a plane
+        wide = torch.from_numpy(np.stack([x.real, x.imag], -1).reshape(
+            -1)).to(cuda).repeat_interleave(2)
+        planes = (wide[0::4], wide[2::4])
+    full = get_upfirdn_size(n, taps, up, down)
+    n_out = full if n_out is None else n_out
+    before = upfirdn_planes.launches
+    got = upfirdn_planes(planes, ht, up, down, n_out)
+    torch.cuda.synchronize()
+    assert upfirdn_planes.launches == before + 1
+    got = torch.stack(got).cpu()
+    assert got.shape == (2, n_out)
+    cpu = tuple(p.cpu() for p in planes)
+    ref = torch.stack(upfirdn_planes_plain(cpu, torch.from_numpy(h), up, down,
+                                           n_out))
+    assert _rel(got, ref) < 1e-5
+    plan = upfirdn_plan(taps, up, down, 4, 2)      # two planes: float2
+    staged = torch.stack(upfirdn_staged(cpu, torch.from_numpy(h), up, down,
+                                        n_out, 2))
+    assert _rel(got, staged) < 1e-5
+    truth = np.zeros(n_out, np.complex128)
+    s = sps.upfirdn(h.astype(np.float64), x.astype(np.complex128), up, down)
+    truth[: min(n_out, full)] = s[:n_out]
+    np.testing.assert_allclose(got[0].numpy() + 1j * got[1].numpy(), truth,
+                               atol=2e-4 * np.sqrt(taps), rtol=1e-4)
+    assert plan["route"] == ("window-staged" if plan["staged"] else
+                             "window-unstaged") + "-float2"
+    assert plan["staged"] == (taps < 30_000)
+    reason = select_upfirdn_path(n, taps, up, down, torch.complex64, cuda)[1]
+    assert plan["route"] in reason
 
 
 def test_upfirdn_kernel_grid_float64(cuda):
