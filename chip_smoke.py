@@ -51,8 +51,16 @@
    ``detect_via_threshold`` -> ``fast_xcorr`` on each detected slice.
    Then, each with every launch count set to 0 just before it and read
    just after: ``GroupXcorrCZT(...).xcorr`` over the bench cell's 1024
-   shifts ("group-caf-hopper"), and ``sliding_multiply_normalised`` at
-   4,194,304 x 4 x 1024.
+   shifts ("group-caf-hopper"), ``sliding_multiply_normalised`` at
+   4,194,304 x 4 x 1024, and the demodulation layer, which runs no kernel
+   (every count must still read 0 after it) at the JAX bench's demod and
+   Viterbi cells: ``DemodulatorBatchQPSK.demod_batch`` on 256 planted QPSK
+   bursts of 4096 samples (a preamble at a known shift, four ragged
+   bursts), ``viterbi_path_acs_batch`` on 64 x 512 CP2FSK and CPM
+   (k_syms = 2) bursts, ``ViterbiDemodulator("branch").run`` one burst a
+   call, and the general and bursty scans at 128 symbols, each against the
+   same call on the CPU (integers equal, metrics within rtol 1e-4) and its
+   planted truth, timed on CUDA events in the bench's units.
    Checks the routes, the launch counts, the planted channel, edges, shifts
    and bins, the receiver's answer and the detection chain's against the
    same calls on the CPU (plain twins), both big-window routes and the group
@@ -155,6 +163,19 @@ EDGE_MARGIN = 16                         # detected edge vs planted burst
 SEARCH = 64                              # xcorr shifts either side of an edge
 # noise-level grid of auto_detect_threshold: 1 dB steps, -30 .. 0 dB
 NOISE_LEVELS_DB = np.arange(-30, 1)
+# the demodulation layer at the JAX bench's shapes (bench.py:397-587): the
+# burst-batched QPSK chain, 256 bursts x 1024 symbols at osr 4, a 32-symbol
+# preamble searched over 64 shifts, 928 payload symbols; the CP2FSK and CPM
+# (k_syms = 2) trellises, 64 bursts x 512 symbols at up 8
+DM_B, DM_NSYMS, DM_OSR, DM_AMBLE, DM_SEARCH = 256, 1024, 4, 32, 64
+DM_OUT = DM_NSYMS - DM_AMBLE - DM_SEARCH
+DM_EYE = (0.55, 1.0, 0.8, 0.35)          # amplitude per sampling phase
+DM_SIGMA = 0.126                         # noise per component: Es/N0 15 dB
+DM_RAGGED = (1, 37, 1000, 2001)          # samples cut from bursts 0-3
+VT_B, VT_NSYMS, VT_UP = 64, 512, 8
+# Viterbi metrics, card vs CPU: f32 sums of up to 8,192 terms in another
+# order; the JAX tests' tolerance (tests/test_viterbi.py)
+VT_RTOL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -438,6 +459,244 @@ def detection_chain(chan, template, rx):
         peaks.append((s0 + k, int(bins[k]), float(qf2[k])))
     return {"channel": best, "threshold": thr, "edges": spans,
             "peaks": peaks}
+
+
+def qpsk_batch_scene(seed: int):
+    """The batch chain's scene: per burst random QPSK symbols held for osr
+    samples with a clear best sampling phase (DM_EYE), a random carrier
+    phase, DM_AMBLE planted at a shift < DM_SEARCH, complex noise at Es/N0
+    15 dB; bursts 0-3 cut short by DM_RAGGED, with loud garbage past their
+    ends. Returns (x (B, L) complex64, lengths, amble, shifts, symbols)."""
+    rng = np.random.default_rng(seed)
+    L = DM_NSYMS * DM_OSR
+    amble = rng.integers(0, 4, DM_AMBLE)
+    syms = rng.integers(0, 4, (DM_B, DM_NSYMS))
+    shifts = rng.integers(0, DM_SEARCH, DM_B)
+    for b in range(DM_B):
+        syms[b, shifts[b]: shifts[b] + DM_AMBLE] = amble
+    const = np.array([1, 1j, -1, -1j])
+    x = (np.repeat(const[syms], DM_OSR, axis=1) * np.tile(DM_EYE, DM_NSYMS)
+         * np.exp(1j * rng.uniform(-np.pi, np.pi, (DM_B, 1))))
+    x += DM_SIGMA * (rng.standard_normal(x.shape)
+                     + 1j * rng.standard_normal(x.shape))
+    lengths = np.full(DM_B, L)
+    lengths[: len(DM_RAGGED)] -= DM_RAGGED
+    for b in range(len(DM_RAGGED)):
+        x[b, lengths[b]:] = 10.0 * rng.standard_normal(L - lengths[b])
+    return x.astype(np.complex64), lengths, amble, shifts, syms
+
+
+def trellis_scene(seed: int, pulse, omega: float, sigma: float):
+    """VT_B bursts of VT_NSYMS random +/-1 symbols through ``pulse`` (one
+    source, frequency offset ``omega``) at VT_UP samples a symbol, plus
+    complex noise of ``sigma`` per component. Returns (ys (B, n) complex64,
+    the symbol indices)."""
+    rng = np.random.default_rng(seed)
+    n = VT_NSYMS * VT_UP
+    truth = rng.integers(0, 2, (VT_B, VT_NSYMS))
+    ups = np.zeros((VT_B, n), complex)
+    ups[:, ::VT_UP] = 1.0 - 2.0 * truth
+    ys = np.stack([np.convolve(pulse, u)[:n] for u in ups])
+    ys = ys * np.exp(-1j * omega * np.arange(n))
+    ys += sigma * (rng.standard_normal(ys.shape)
+                   + 1j * rng.standard_normal(ys.shape))
+    return ys.astype(np.complex64), truth
+
+
+def close(card, cpu, rtol: float) -> float:
+    """max |card - cpu| / max |cpu| over the finite entries, which must be
+    the same entries on both; fails at ``rtol`` or above."""
+    import torch
+    card, cpu = card.cpu(), cpu.cpu()
+    fin = torch.isfinite(cpu)
+    check(torch.equal(torch.isfinite(card), fin), "infinite entries differ")
+    err = float((card[fin] - cpu[fin]).abs().max() / cpu[fin].abs().max())
+    check(err < rtol, f"relative error {err:.3e} >= {rtol}")
+    return err
+
+
+def demod_layer(dev, tag: str, kernels) -> dict:
+    """The demodulation layer on the card at the JAX bench's shapes, every
+    call against the port's own CPU run of it (integers equal, metrics
+    within their tolerance) and against the scene's planted truth, with
+    CUDA-event medians in the bench's units. No TPU kernel lies on this
+    path: every kernel count is set to 0 before it and must read 0 after."""
+    import torch
+    from pydsproutines_tpu_torch.ops import (BurstyViterbiDemodulator,
+                                             DemodulatorBatchQPSK,
+                                             ViterbiDemodulator,
+                                             viterbi_path_acs_batch)
+    from pydsproutines_tpu_torch.utils.timing import median_ms
+    for kernel in kernels:
+        kernel.launches = 0
+    out = {}
+
+    # -- the burst-batched QPSK chain (qpsk_demod_batch_256x4096) ------------
+    x, lengths, amble, shifts, syms = qpsk_batch_scene(seed=31)
+    res = {}
+    for where in (dev, "cpu"):
+        dm = DemodulatorBatchQPSK(device=where)
+        res[where] = dm.demod_batch(
+            torch.from_numpy(x).to(where), DM_OSR, amble, 0, DM_SEARCH,
+            DM_OUT, lengths=torch.from_numpy(lengths).to(where))
+    g, c = res[dev], res["cpu"]
+    for name in ("syms", "eo_idx", "best_matches", "best_rotations",
+                 "best_idx", "rotated_syms", "bits", "bit_counts"):
+        check(torch.equal(getattr(g, name).cpu(), getattr(c, name)),
+              f"demod_batch {name}: card vs CPU")
+    errs = {name: close(getattr(g, name), getattr(c, name), VT_RTOL)
+            for name in ("eo_metric", "svd_metric", "reimc")}
+    errs["theta_abs"] = float((g.theta.cpu() - c.theta).abs().max())
+    check(errs["theta_abs"] < VT_RTOL, f"demod_batch theta {errs}")
+    # symbol n is valid while its eye-phase sample n*osr + 1 is inside
+    nvalid = -(-(lengths - 1) // DM_OSR)
+    counts = np.minimum(DM_OUT, nvalid - shifts - DM_AMBLE)
+    check(np.array_equal(g.best_idx.cpu().numpy(), shifts)
+          and bool((g.best_matches == DM_AMBLE).all())
+          and bool((g.eo_idx == 1).all())
+          and np.array_equal(g.bit_counts.cpu().numpy(), counts),
+          "demod_batch: planted preambles, eye phase or payload counts")
+    bitmap = np.array([0b11, 0b01, 0b00, 0b10])
+    rot = g.rotated_syms.cpu().numpy()
+    bits = g.bits.cpu().numpy().reshape(DM_B, DM_OUT, 2)
+    for b in range(DM_B):
+        pay = slice(shifts[b] + DM_AMBLE, shifts[b] + DM_AMBLE + counts[b])
+        want = bitmap[syms[b, pay]]
+        check(np.array_equal(rot[b, : nvalid[b]], syms[b, : nvalid[b]])
+              and np.array_equal(bits[b, : counts[b], 0], want >> 1)
+              and np.array_equal(bits[b, : counts[b], 1], want & 1)
+              and not bits[b, counts[b]:].any(),
+              f"demod_batch burst {b}: symbols or payload bits")
+    xd, ld = torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev)
+    dmq = DemodulatorBatchQPSK(device=dev)
+    ms = median_ms(lambda: dmq.demod_batch(xd, DM_OSR, amble, 0, DM_SEARCH,
+                                           DM_OUT, lengths=ld), reps=5)
+    out["qpsk_demod_batch_256x4096"] = {
+        "ms": ms, "msamples_per_s": DM_B * x.shape[1] / ms / 1e3,
+        "card_vs_cpu": errs}
+    print(f"DemodulatorBatchQPSK.demod_batch {DM_B} x {x.shape[1]}: {ms:.4f}"
+          f" ms ({DM_B * x.shape[1] / ms / 1e3:.1f} Msample/s); symbols, "
+          f"shifts, rotations, bits equal on the card and the CPU and to the"
+          f" planted scene; {errs} {tag}")
+
+    # -- CP2FSK and CPM trellises -----------------------------------------------
+    alphabet = np.array([1.0, -1.0], np.complex64)
+    pret = np.array([[0, 1], [0, 1]], np.int32)
+    start = np.array([True, True])
+    static = dict(pret_static=((0, 1), (0, 1)), start_static=(True, True))
+    cells = (("cp2fsk_viterbi_path_64x512", np.ones(VT_UP), 0.0, 0.3),
+             ("cpm_viterbi_k2_path_64x512", np.full(2 * VT_UP, 0.5), 0.05,
+              0.1))
+    for cell, pulse, omega, sigma in cells:
+        ys, truth = trellis_scene(41, pulse, omega, sigma)
+        k_syms = pulse.size // VT_UP
+        args = (alphabet, pret, pulse[None].astype(np.complex64),
+                np.array([omega], np.float32), start)
+        kw = dict(up=VT_UP, pulselen=pulse.size, k_syms=k_syms,
+                  pathlen=VT_NSYMS, **static)
+        yd = torch.from_numpy(ys).to(dev)
+        gp, gm = viterbi_path_acs_batch(yd, *args, **kw)
+        cp, cm = viterbi_path_acs_batch(torch.from_numpy(ys), *args, **kw)
+        check(torch.equal(gp.cpu(), cp), f"{cell}: paths card vs CPU")
+        err = close(gm, cm, VT_RTOL)
+        best = gp[torch.arange(VT_B, device=dev),
+                  gm.argmin(dim=1)].cpu().numpy()
+        check(np.array_equal(best, truth), f"{cell}: planted symbols")
+        ms = median_ms(lambda: viterbi_path_acs_batch(yd, *args, **kw),
+                       reps=5)
+        out[cell] = {"ms": ms, "msymbols_per_s": VT_B * VT_NSYMS / ms / 1e3,
+                     "metric_rel_err": err}
+        print(f"viterbi_path_acs_batch {cell}: {ms:.4f} ms "
+              f"({VT_B * VT_NSYMS / ms / 1e3:.2f} Msymbol/s); paths equal on"
+              f" the card and the CPU, metrics within {err:.2e}, planted "
+              f"symbols decoded {tag}")
+        if k_syms == 1:
+            cp2fsk = (ys, args)
+
+    # -- the faithful "branch" survivors, one burst a call -----------------------
+    # (cp2fsk_viterbi_branch_tables_64x512): on memoryless pulses their
+    # survivors are data-independent (state 0, then the final state), so
+    # the truth is each metric summed in float64 along that survivor
+    ys, args = cp2fsk
+    vd = {w: ViterbiDemodulator(alphabet, pret, args[2], args[3], VT_UP,
+                                np.array([0, 1]), "branch", device=w)
+          for w in (dev, "cpu")}
+    yb = torch.from_numpy(ys).to(dev)
+    runs = [vd[dev].run(yb[b], VT_NSYMS) for b in range(VT_B)]
+    err = 0.0
+    for b, (_, gm, gv) in enumerate(runs):
+        _, cm, cv = vd["cpu"].run(torch.from_numpy(ys[b]), VT_NSYMS)
+        check(torch.equal(gv.cpu(), cv), f"branch burst {b}: paths")
+        err = max(err, close(gm, cm, VT_RTOL))
+        bm = (np.abs(ys[b].reshape(VT_NSYMS, VT_UP).astype(complex)
+                     - alphabet[:, None, None]) ** 2).sum(-1)   # (A, N)
+        surv = bm[0, :-1].sum() + bm[:, -1]
+        check(np.allclose(gm.cpu().numpy(), surv, rtol=VT_RTOL),
+              f"branch burst {b}: metrics vs float64 survivors")
+    ms = median_ms(lambda: [vd[dev].run(yb[b], VT_NSYMS)
+                            for b in range(VT_B)], reps=3)
+    out["cp2fsk_viterbi_branch_tables_64x512"] = {
+        "ms": ms, "msymbols_per_s": VT_B * VT_NSYMS / ms / 1e3,
+        "metric_rel_err": err}
+    print(f"ViterbiDemodulator(branch).run x {VT_B} bursts of {VT_NSYMS}: "
+          f"{ms:.4f} ms ({VT_B * VT_NSYMS / ms / 1e3:.2f} Msymbol/s); paths "
+          f"equal on the card and the CPU, metrics within {err:.2e} and "
+          f"equal to the float64 survivor sums {tag}")
+
+    # -- the sequential scans: general trellis and bursty ------------------------
+    up, pathlen = 4, 128
+    cpm = np.exp(1j * np.arange(4) * np.pi / 2).astype(np.complex64)
+    pre4 = np.array([[(p - 1) % 4, (p + 1) % 4] for p in range(4)], np.int32)
+    pulse4 = np.full((1, 2 * up), 0.5, np.complex64)
+    rng = np.random.default_rng(43)
+    walk = np.cumsum(np.r_[0, rng.choice([-1, 1], pathlen - 1)]) % 4
+    nsamps = pathlen * up + 2 * up
+    up_syms = np.zeros(nsamps, complex)
+    up_syms[: pathlen * up: up] = cpm[walk]
+    y = (np.convolve(pulse4[0], up_syms)[:nsamps]
+         * np.exp(-1j * 0.05 * np.arange(nsamps))
+         + 0.05 * (rng.standard_normal(nsamps)
+                   + 1j * rng.standard_normal(nsamps))).astype(np.complex64)
+    burst, guard = 20, 4
+    active = (np.arange(pathlen) % (burst + guard)) < burst
+    bsyms = np.where(active, alphabet[rng.integers(0, 2, pathlen)], 0)
+    up_b = np.zeros(nsamps, complex)
+    up_b[: pathlen * up: up] = bsyms
+    yb = (np.convolve(pulse4[0], up_b)[:nsamps]
+          + 0.05 * (rng.standard_normal(nsamps)
+                    + 1j * rng.standard_normal(nsamps))).astype(np.complex64)
+    scans = (
+        ("general scan (4 states, k_syms 2)",
+         lambda w: ViterbiDemodulator(cpm, pre4, pulse4, [0.05], up,
+                                      device=w), y, cpm[walk]),
+        (f"BurstyViterbiDemodulator ({burst} + {guard} guard)",
+         lambda w: BurstyViterbiDemodulator(alphabet, pret, pulse4, [0.0],
+                                            up, burst, guard, device=w),
+         yb, bsyms))
+    for name, make, yv, want in scans:
+        gdem, cdem = make(dev), make("cpu")
+        yd = torch.from_numpy(yv).to(dev)
+        gbest, gm, gv = gdem.run(yd, pathlen)
+        _, cm, cv = cdem.run(torch.from_numpy(yv), pathlen)
+        check(torch.equal(gv.cpu(), cv), f"{name}: paths card vs CPU")
+        err = close(gm, cm, VT_RTOL)
+        check(np.allclose(gbest.cpu().numpy(), want, atol=1e-4),
+              f"{name}: planted symbols")
+        ms = median_ms(lambda: gdem.run(yd, pathlen), reps=3)
+        key = "viterbi_general_scan" if "general" in name \
+            else "bursty_viterbi_scan"
+        out[key] = {"ms": ms, "msymbols_per_s": pathlen / ms / 1e3,
+                    "pathlen": pathlen, "metric_rel_err": err}
+        us = ms / pathlen * 1e3
+        print(f"{name}, {pathlen} symbols: {ms:.4f} ms ({us:.1f} us a "
+              f"symbol); paths equal on the card and the CPU, planted "
+              f"symbols decoded {tag}")
+
+    launches = {k.__name__: k.launches for k in kernels}
+    check(not any(launches.values()),
+          f"the demodulation layer launched a kernel: {launches}")
+    out["launches"] = launches
+    return out
 
 
 def main() -> int:
@@ -1030,6 +1289,10 @@ def main() -> int:
               f"{int(torch.argmax(gq))}/{int(torch.argmax(cq))}")
         print(f"{route} n={n} on the card vs on the CPU: QF^2 rel err "
               f"{qerr:.3e}, planted shift and bin equal")
+
+    # this slice's path: the demodulation layer, counts at 0 before it
+    demod = demod_layer(dev, tag, every)
+    print("demod layer:", json.dumps(demod))
 
     # 4) whole-step time -------------------------------------------------------
     step_ms = median_ms(lambda: rcv.step(tri, xri), reps=5)

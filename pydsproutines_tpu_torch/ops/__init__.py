@@ -1,5 +1,11 @@
-from pydsproutines_tpu_torch.ops.demod import (get_eye_opening, lock_phase,
-                                               map_syms)
+from pydsproutines_tpu_torch.ops.demod import (
+    PSK_BITMAPS, PSK_CONSTS, BatchDemodResult, BurstyDemodulatorCP2FSK,
+    DemodulatorBatchPSK, DemodulatorBatchQPSK, SimpleDemodulator8PSK,
+    SimpleDemodulatorBPSK, SimpleDemodulatorPSK, SimpleDemodulatorQPSK,
+    compare_int_preambles, demodulate_cp2fsk, detect_b_or_q, find_plain_text,
+    get_eye_opening, lock_phase, map_syms, map_syms_8psk, map_syms_bpsk,
+    map_syms_qpsk, ml_demod_qpsk, pack_binary_bytes_to_bits, syms_to_bits,
+    unpack_to_binary_bytes)
 from pydsproutines_tpu_torch.ops.detection import (BurstDetector, Edges,
                                                    auto_detect_threshold,
                                                    energy_detection,
@@ -31,6 +37,9 @@ from pydsproutines_tpu_torch.ops.spectral import (CZT, IntegerMultipleFFT,
                                                   burst_fft, czt, dft,
                                                   tone_spectrum)
 from pydsproutines_tpu_torch.ops.wola import Channeliser, select_wola_path, wola
+from pydsproutines_tpu_torch.ops.viterbi import (BurstyViterbiDemodulator,
+                                                ViterbiDemodulator,
+                                                viterbi_path_acs_batch)
 from pydsproutines_tpu_torch.ops.xcorr import (
     argmax2d, argmax_and_max_last, calc_qf2, compute_fast_xcorr_complexity,
     compute_group_xcorr_czt_complexity, convert_eff_snr_to_qf2,
@@ -39,7 +48,16 @@ from pydsproutines_tpu_torch.ops.xcorr import (
     make_time_scan_steervec, select_xcorr_path, sigma_dfo, sigma_dto,
     theoretical_multi_peak)
 
-__all__ = ["get_eye_opening", "lock_phase", "map_syms", "best_two_factor",
+__all__ = ["get_eye_opening", "lock_phase", "map_syms", "PSK_CONSTS",
+           "PSK_BITMAPS", "map_syms_bpsk", "map_syms_qpsk", "map_syms_8psk",
+           "compare_int_preambles", "syms_to_bits", "unpack_to_binary_bytes",
+           "pack_binary_bytes_to_bits", "find_plain_text", "detect_b_or_q",
+           "SimpleDemodulatorPSK", "SimpleDemodulatorBPSK",
+           "SimpleDemodulatorQPSK", "SimpleDemodulator8PSK",
+           "BatchDemodResult", "DemodulatorBatchPSK", "DemodulatorBatchQPSK",
+           "demodulate_cp2fsk", "BurstyDemodulatorCP2FSK", "ml_demod_qpsk",
+           "ViterbiDemodulator", "BurstyViterbiDemodulator",
+           "viterbi_path_acs_batch", "best_two_factor",
            "fft_factors", "find_triple",
            "Channeliser", "select_wola_path", "wola", "argmax_and_max_last",
            "calc_qf2", "convert_qf2_to_eff_snr", "fast_xcorr",

@@ -296,6 +296,8 @@ def _constructors(device=None):
     from pydsproutines_tpu_torch.models import WidebandReceiver
     from pydsproutines_tpu_torch.ops.xcorr import GenXcorr
     y = np.ones(64, np.complex64)
+    trellis = (np.array([1, -1]), np.array([[0, 1], [0, 1]]),
+               np.ones((1, 8)), np.zeros(1), 8)
     return {
         "WidebandReceiver": lambda: WidebandReceiver(16, 128, device=device),
         "WidebandReceiver.from_numpy_params":
@@ -337,6 +339,38 @@ def _constructors(device=None):
             lambda: ops.MultiPreambleCorrelator(y.reshape(2, 32), 2,
                                                 device=device),
         "GenXcorr": lambda: GenXcorr([0.0, 0.5], 1.0, 64, device=device),
+        "SimpleDemodulatorPSK": lambda: ops.SimpleDemodulatorPSK(
+            8, device=device),
+        "SimpleDemodulatorBPSK": lambda: ops.SimpleDemodulatorBPSK(
+            device=device),
+        "SimpleDemodulatorQPSK": lambda: ops.SimpleDemodulatorQPSK(
+            device=device),
+        "SimpleDemodulator8PSK": lambda: ops.SimpleDemodulator8PSK(
+            device=device),
+        "SimpleDemodulatorPSK.from_numpy_params":
+            lambda: ops.SimpleDemodulatorPSK.from_numpy_params(
+                {"m": 4, "bitmap": np.arange(4)}, device=device),
+        "DemodulatorBatchPSK": lambda: ops.DemodulatorBatchPSK(
+            2, "bpsk", device=device),
+        "DemodulatorBatchQPSK": lambda: ops.DemodulatorBatchQPSK(
+            device=device),
+        "DemodulatorBatchQPSK.from_numpy_params":
+            lambda: ops.DemodulatorBatchQPSK.from_numpy_params(
+                {"bitmap": np.arange(4)}, device=device),
+        "ViterbiDemodulator": lambda: ops.ViterbiDemodulator(
+            *trellis, device=device),
+        "ViterbiDemodulator.from_numpy_params":
+            lambda: ops.ViterbiDemodulator.from_numpy_params(
+                dict(zip(("alphabet", "pretransitions", "pulses", "omegas",
+                          "up"), trellis), allowed_start_idx=[0, 1],
+                     survivor_metric="path"), device=device),
+        "BurstyViterbiDemodulator": lambda: ops.BurstyViterbiDemodulator(
+            *trellis, 10, 3, device=device),
+        "BurstyViterbiDemodulator.from_numpy_params":
+            lambda: ops.BurstyViterbiDemodulator.from_numpy_params(
+                dict(zip(("alphabet", "pretransitions", "pulses", "omegas",
+                          "up"), trellis), allowed_start_idx=[0, 1],
+                     num_burst_syms=10, num_guard_syms=3), device=device),
     }
 
 
