@@ -60,7 +60,23 @@
    (k_syms = 2) bursts, ``ViterbiDemodulator("branch").run`` one burst a
    call, and the general and bursty scans at 128 symbols, each against the
    same call on the CPU (integers equal, metrics within rtol 1e-4) and its
-   planted truth, timed on CUDA events in the bench's units.
+   planted truth, timed on CUDA events in the bench's units. Last, with
+   every count at 0 before it, the TDOA/FDOA geolocation path
+   (``geolocation``): a scene synthesised on the card by the port's
+   ``signal/`` (a 16,384-sample CP2FSK burst from a stationary ground
+   emitter, propagated in float64 along the delay curves of a stationary
+   reference and three moving receivers at fs 1 MHz, fc 300 MHz, into
+   2^20-sample captures with noise at 10 dB in-band), one
+   ``CheckpointedXcorrPipeline`` a pair over 15 blocks of 65,536 shifts
+   (route "fused-hopper": only the CAF kernel #2 may launch, 8 launches a
+   block), ``czt_xcorr`` and ``fine_freq_time_search`` at each peak,
+   ``TDFDGridLocalizer`` over 2048 x 2048 points of the 200 km area, the
+   TDOA+FDOA CRB and its 95% ellipse, and ``propagate_signal_exact`` at
+   N = 8192; each stage against the same call on the CPU (the peak block
+   of each pipeline, the fine stage, the whole cost grid) and the scene's
+   truth (TDOA and FDOA within 5 sigma, the emitter within the CRB's 95%
+   semi-major axis plus sqrt(cond) half cell diagonals of the located
+   point).
    Checks the routes, the launch counts, the planted channel, edges, shifts
    and bins, the receiver's answer and the detection chain's against the
    same calls on the CPU (plain twins), both big-window routes and the group
@@ -176,6 +192,40 @@ VT_B, VT_NSYMS, VT_UP = 64, 512, 8
 # Viterbi metrics, card vs CPU: f32 sums of up to 8,192 terms in another
 # order; the JAX tests' tolerance (tests/test_viterbi.py)
 VT_RTOL = 1e-4
+# the geolocation phase: a TDOA/FDOA scene at fs 1 MHz, fc 300 MHz; one
+# stationary ground emitter in a 200 km x 200 km area, a stationary
+# reference receiver and three moving ones (x, y, z in metres; speeds in
+# m/s); 2^20-sample captures; a 16,384-sample CP2FSK burst (2047 bits at 8
+# samples a bit, h 0.5) that the reference receives from sample 400,000;
+# noise at an in-band SNR of 10 dB in the baud's 125 kHz
+GEO_FS, GEO_FC, GEO_CAPTURE, GEO_BURST, GEO_UP = 1e6, 300e6, 1 << 20, \
+    16384, 8
+GEO_T0, GEO_SNR_DB = 400_000, 10.0
+GEO_EMITTER = (23_456.7, -31_234.5, 0.0)
+GEO_REF = (-60e3, -70e3, 30.0)
+GEO_LINEAR = (((-80e3, 60e3, 6000.0), (40e3, 90e3, 6000.0), 220.0),
+              ((70e3, -80e3, 4000.0), (90e3, 40e3, 4000.0), 130.0))
+GEO_CIRCLE = (90e3, 180.0, 8000.0, 0.3)   # radius, speed, height, phase
+# the pipeline: 65,536 shifts a block (15 blocks a pair), 8192 shifts a
+# kernel launch (the 1 GiB scratch budget's cap at n = 16,384)
+GEO_BLOCK, GEO_BATCH = 65536, 8192
+GEO_GRID, GEO_HALF = 2048, 100e3          # 2048 x 2048 points over the area
+# the fine stage: a CZT over +-2 coarse bins at 0.5 Hz, then two frequency
+# passes (0.5, 0.1 Hz) and a +-1 sample delay scan at 0.01 sample
+GEO_CZT_STEP, GEO_FINE_RES, GEO_TD_STEP = 0.5, (0.5, 0.1), 0.01
+GEO_TD_BAND = (-GEO_FS / GEO_UP, GEO_FS / GEO_UP)
+# card vs CPU: the pipeline's QF^2 per shift within CAF_RTOL; the fine
+# stage's CZT and fine-search costs within CAF_RTOL (f32 sums of 16,384
+# products in another order), and its picks on the CPU's peaks: the CZT
+# bin and the delay within CAF_RTOL of the CPU's maximum, the FDOA within
+# one 0.1 Hz step (a 0.1 Hz step moves a 16,384-sample peak by ~1e-6,
+# the size of the sums' rounding: on an H100 the card picked 125.0297 Hz
+# where the CPU picked 124.9297);
+# the grid's float32 costs within GEO_GRID_RTOL * max(1, |cost|) (the CPU
+# parity tests' bound); propagate_signal_exact within 1e-5 of max |ref|
+# (its float32 parity test's bound)
+GEO_GRID_RTOL, GEO_EXACT_N, GEO_EXACT_RTOL = 1e-4, 8192, 1e-5
+LIGHTSPEED = 299792458.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -697,6 +747,351 @@ def demod_layer(dev, tag: str, kernels) -> dict:
           f"the demodulation layer launched a kernel: {launches}")
     out["launches"] = launches
     return out
+
+
+def geo_scene(dev, seed: int) -> dict:
+    """The TDOA/FDOA scene on ``dev``, made by the port's own generators:
+    the receivers' tracks (host float64, one row a sample), a CP2FSK burst
+    whose phase curve a ``ConstAmpSigLerp`` propagates along each receiver's
+    tau(t) = |r(t) - e| / c in float64 (carrier included), cast to complex64
+    and summed with ``randnoise``; the template is the reference capture's
+    ``GEO_BURST`` samples from ``GEO_T0``."""
+    import torch
+    from pydsproutines_tpu_torch.estimation import (
+        create_circular_trajectory, create_linear_trajectory)
+    from pydsproutines_tpu_torch.signal import (ConstAmpSigLerp,
+                                                make_pulsed_cpfsk_syms,
+                                                rand_bits, randnoise)
+    dt, baud = 1.0 / GEO_FS, GEO_FS / GEO_UP
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    (a1, b1, v1), (a3, b3, v3) = GEO_LINEAR
+    radius, speed, height, phi = GEO_CIRCLE
+    n = GEO_CAPTURE
+    tracks = [(np.tile(GEO_REF, (n, 1)), np.zeros((n, 3))),
+              create_linear_trajectory(n, a1, b1, v1, dt),
+              create_circular_trajectory(n, radius, speed, height, dt,
+                                         phi)[:2],
+              create_linear_trajectory(n, a3, b3, v3, dt)]
+    e = torch.tensor(GEO_EMITTER, dtype=torch.float64, device=dev)
+    taus = [torch.linalg.vector_norm(torch.from_numpy(r).to(dev) - e, dim=1)
+            / LIGHTSPEED for r, _ in tracks]
+    # the full convolution with the 8-tap phase pulse adds 8 samples
+    bits = rand_bits(gen, (GEO_BURST - GEO_UP) // GEO_UP, 2, device=dev)
+    css = make_pulsed_cpfsk_syms(bits, baud, up=GEO_UP,
+                                 dtype=torch.complex128)[3]
+    check(css.shape[0] == GEO_BURST, f"burst of {css.shape[0]} samples")
+    t_e = GEO_T0 * dt - float(taus[0][0])      # emission of the first sample
+    sig = ConstAmpSigLerp(t_e, t_e + (GEO_BURST - 1) * dt, css, dt, 1.0,
+                          GEO_FC, device=dev)
+    t = torch.arange(n, dtype=torch.float64, device=dev) * dt
+    snr = 10 ** (GEO_SNR_DB / 10)
+    caps = [sig.propagate(t, tau).to(torch.complex64)
+            + randnoise(gen, n, baud, GEO_FS, snr, device=dev)
+            for tau in taus]
+    return {"caps": caps,
+            "template": caps[0][GEO_T0: GEO_T0 + GEO_BURST].clone(),
+            "tracks": tracks, "taus": taus}
+
+
+def geo_truth(scene: dict, k: int) -> tuple[float, float]:
+    """Pair (0, k)'s TDOA (s) and FDOA (Hz) at the burst's centre: tau_k -
+    tau_0, and -fc times the rate of that difference."""
+    mid = GEO_T0 + GEO_BURST // 2
+    e = np.asarray(GEO_EMITTER)
+    rate = []
+    for r, v in (scene["tracks"][0], scene["tracks"][k]):
+        u = (r[mid] - e) / np.linalg.norm(r[mid] - e)
+        rate.append(u @ v[mid] / LIGHTSPEED)
+    td = float(scene["taus"][k][mid] - scene["taus"][0][mid])
+    return td, -GEO_FC * (rate[1] - rate[0])
+
+
+def geo_fine(template, rx, shift: int, bin_: int) -> dict:
+    """The fine stage of one pair on the capture's device: ``czt_xcorr``
+    over +-2 coarse bins at 0.5 Hz at the coarse shift, then
+    ``fine_freq_time_search`` (0.5 and 0.1 Hz passes, +-1 sample of delay
+    at 0.01)."""
+    import torch
+    from pydsproutines_tpu_torch.ops import czt_xcorr, fine_freq_time_search
+    n, fs = template.shape[-1], GEO_FS
+    fd = (bin_ if bin_ < n // 2 else bin_ - n) * fs / n
+    caf, freqs = czt_xcorr(template, rx, fd - 2 * fs / n, fd + 2 * fs / n,
+                           fs, czt_step=GEO_CZT_STEP, output_caf=True,
+                           shifts=np.array([shift]))
+    ci = int(torch.argmax(caf[0]))
+    td_scan = np.arange(-1.0, 1.0, GEO_TD_STEP) / fs
+    ff, td, cost = fine_freq_time_search(
+        template, rx[shift: shift + n], fine_res=list(GEO_FINE_RES),
+        freqfound=float(freqs[ci]), freq_res=fs / n, fs=fs,
+        td_scan_range=td_scan,
+        td_scan_freq_bounds=GEO_TD_BAND)
+    return {"caf": caf[0], "czt_i": ci, "fhz": float(freqs[ci]),
+            "ff": float(ff), "td": float(td), "cost": cost.abs()}
+
+
+def geo_measurements(scene: dict, peaks, fines) -> dict:
+    """The grid search's inputs: per pair (0, k) the receivers' positions
+    and velocities at the burst's reception (the reference at its template's
+    centre, receiver k at its peak shift's), the measured TDOA (coarse shift
+    plus the fine delay) and FDOA, and Stein's sigmas for the scene's
+    in-band SNR over the burst."""
+    from pydsproutines_tpu_torch.ops.xcorr import (expected_eff_snr,
+                                                   sigma_dfo, sigma_dto)
+    half, t0 = GEO_BURST // 2, GEO_T0
+    r0, v0 = scene["tracks"][0]
+    s1, s2, v1, v2, tdoa, fdoa = [], [], [], [], [], []
+    for k, (shift, _, _), fine in zip((1, 2, 3), peaks, fines):
+        rk, vk = scene["tracks"][k]
+        s1.append(r0[t0 + half])
+        v1.append(v0[t0 + half])
+        s2.append(rk[shift + half])
+        v2.append(vk[shift + half])
+        tdoa.append((shift - t0) / GEO_FS + fine["td"])
+        fdoa.append(fine["ff"])
+    # per-sample SNR over the whole band: the in-band SNR times baud / fs
+    snr = 10 ** (GEO_SNR_DB / 10) / GEO_UP
+    eff = expected_eff_snr(snr, snr)
+    integ = GEO_BURST / GEO_FS
+    return {"s1": np.array(s1), "s2": np.array(s2), "v1": np.array(v1),
+            "v2": np.array(v2), "tdoa": np.array(tdoa),
+            "fdoa": np.array(fdoa),
+            "td_sigma": float(sigma_dto(GEO_FS / GEO_UP, GEO_FS, integ, eff)),
+            "fd_sigma": float(sigma_dfo(GEO_FS, integ, eff))}
+
+
+def geo_run_grid(loc, m: dict):
+    return loc.run(m["s1"], m["s2"], m["tdoa"], [m["td_sigma"]] * 3,
+                   m["v1"], m["v2"], m["fdoa"], [m["fd_sigma"]] * 3, GEO_FC)
+
+
+def geo_crb(m: dict, located) -> dict:
+    """The TDOA+FDOA CRB at the planted emitter, constrained to a stationary
+    emitter on z = 0 (position x, y free), and its 95% ellipse around the
+    located point."""
+    from scipy.stats import chi2
+    from pydsproutines_tpu_torch.estimation import (calc_crb_tdfd,
+                                                    project_crb_to_ellipse)
+    s = np.column_stack([m["s1"][0], *m["s2"]])
+    sdot = np.column_stack([m["v1"][0], *m["v2"]])
+    crb = calc_crb_tdfd(np.asarray(GEO_EMITTER), s,
+                        np.full(3, m["td_sigma"] * LIGHTSPEED), np.zeros(3),
+                        sdot, np.full(3, m["fd_sigma"] / GEO_FC * LIGHTSPEED),
+                        pairs=[(1, 0), (2, 0), (3, 0)],
+                        cmat=np.eye(6)[:, 2:])
+    ellipse = project_crb_to_ellipse(crb[:3, :3], located, 0.95)
+    return {"crb": crb, "ellipse": ellipse, "k95": float(chi2.ppf(0.95, 2))}
+
+
+def geolocation(dev, kernels) -> tuple[dict, dict]:
+    """The TDOA/FDOA geolocation path on ``dev`` through the public entry
+    points: the scene (``geo_scene``), one ``CheckpointedXcorrPipeline`` a
+    pair (0, k) over the whole capture in blocks (each timed run on a fresh
+    database), the fine stage (``geo_fine``), ``TDFDGridLocalizer`` over a
+    ``GEO_GRID`` x ``GEO_GRID`` mesh of the area, the CRB and its 95%
+    ellipse, and ``propagate_signal_exact`` at ``GEO_EXACT_N``. Every
+    kernel count is set to 0 before the path and read after it: only the
+    CAF kernel (#2) runs, one launch a chunk of ``GEO_BATCH`` shifts. Each
+    stage is held against the same call on the CPU and the scene's truth.
+    Returns (the phase's results, the CAF kernel's row at the pipeline's
+    shape)."""
+    import os
+    import statistics
+    import tempfile
+    from pydsproutines_tpu_torch.estimation import TDFDGridLocalizer
+    from pydsproutines_tpu_torch.io import XcorrDB
+    from pydsproutines_tpu_torch.models import CheckpointedXcorrPipeline
+    from pydsproutines_tpu_torch.ops.fft import caf_plan, plan_flop
+    from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import (
+        SCRATCH_BYTES_PER_SAMPLE, caf_peak, caf_peak_plain)
+    from pydsproutines_tpu_torch.ops.xcorr import fast_xcorr
+    from pydsproutines_tpu_torch.signal import propagate_signal_exact
+    from pydsproutines_tpu_torch.utils.memory import chunk_shifts
+    from pydsproutines_tpu_torch.utils.timing import median_ms
+
+    held = {}
+    scene_ms = median_ms(lambda: held.update(scene=geo_scene(dev, 41)),
+                         reps=3)
+    sc = held["scene"]
+    caps, tmpl = sc["caps"], sc["template"]
+    xr = np.linspace(-GEO_HALF, GEO_HALF, GEO_GRID)
+    loc = TDFDGridLocalizer.from_xy_meshgrid(xr, xr, 0.0, device=dev)
+    nblocks = (GEO_CAPTURE - GEO_BURST + 1) // GEO_BLOCK
+    chunks = -(-GEO_BLOCK // chunk_shifts(GEO_BURST, GEO_BATCH,
+                                      SCRATCH_BYTES_PER_SAMPLE))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = iter(range(10**6))
+
+        def pipeline(k):
+            db = XcorrDB(os.path.join(tmp, f"run{next(runs)}.db"))
+            pipe = CheckpointedXcorrPipeline(db, f"pair0{k}", tmpl, GEO_FS,
+                                             GEO_FC, GEO_BLOCK, GEO_BATCH,
+                                             device=dev)
+            check(pipe.run(caps[k]) == nblocks, f"pair (0, {k}) blocks")
+            return db, pipe
+
+        # the path, every count at 0 just before it
+        for kernel in kernels:
+            kernel.launches = 0
+        pipes = [pipeline(k) for k in (1, 2, 3)]
+        peaks = [pipe.peak() for _, pipe in pipes]
+        fines = [geo_fine(tmpl, caps[k], shift, bin_)
+                 for k, (shift, _, bin_) in zip((1, 2, 3), peaks)]
+        m = geo_measurements(sc, peaks, fines)
+        cost = geo_run_grid(loc, m)
+        located = loc.localize(cost)
+        launches = {k.__name__: k.launches for k in kernels}
+
+        route = "fused-hopper"
+        want = {k.__name__: 0 for k in kernels}
+        want["caf_peak"] = 3 * nblocks * chunks
+        check(launches == want, f"geolocation launches {launches}, "
+                                f"expected {want}")
+        for (_, pipe), k in zip(pipes, (1, 2, 3)):
+            check(pipe.xcorr_path == route,
+                  f"pair (0, {k}) route {pipe.xcorr_path}")
+
+        # each pair's peak block against the same sweep on the CPU; the
+        # truth of the scene
+        pairs, abs_errs = [], []
+        cpu_tmpl = tmpl.cpu()
+        for k, (db, pipe), (shift, qf2, bin_), fine in zip(
+                (1, 2, 3), pipes, peaks, fines):
+            b0 = shift // GEO_BLOCK * GEO_BLOCK
+            row = [r for r in db.select_results(f"pair0{k}")
+                   if int(r[1]) == b0]
+            check(len(row) == 1, f"pair (0, {k}) block at {b0}")
+            gq, gb = XcorrDB.regenerate_1d(row[0][-3], row[0][-2])
+            cq, cb = fast_xcorr(cpu_tmpl, caps[k].cpu(), True,
+                                shifts=np.arange(b0, b0 + GEO_BLOCK),
+                                batch_size=GEO_BATCH)
+            cq, cb = cq.double().numpy(), cb.numpy()
+            err = float(np.max(np.abs(gq - cq) / cq))
+            abs_errs.append(float(np.max(np.abs(gq - cq))))
+            i = int(np.argmax(cq))
+            check(err < CAF_RTOL and int(np.argmax(gq)) == i
+                  and b0 + i == shift and int(gb[i]) == int(cb[i]) == bin_,
+                  f"pair (0, {k}) block vs CPU: QF^2 rel err {err:.3e}, "
+                  f"peak {b0 + int(np.argmax(gq))}/{b0 + i}, bins "
+                  f"{int(gb[i])}/{int(cb[i])}")
+            # the fine stage's picks sit on peaks flat to f32 rounding: the
+            # card's must be a peak of the CPU's curves, its frequency
+            # within one step of the last pass of the CPU's
+            cf = geo_fine(cpu_tmpl, caps[k].cpu(), shift, bin_)
+            ferr = max(rel_err(fine["caf"].cpu(), cf["caf"]),
+                       rel_err(fine["cost"].cpu(), cf["cost"]))
+            tdi = int(round((fine["td"] * GEO_FS + 1.0) / GEO_TD_STEP))
+            near = (float(cf["caf"][fine["czt_i"]])
+                    >= float(cf["caf"].max()) * (1 - CAF_RTOL)
+                    and float(cf["cost"][tdi])
+                    >= float(cf["cost"].max()) * (1 - CAF_RTOL))
+            check(ferr < CAF_RTOL and near
+                  and abs(fine["ff"] - cf["ff"]) <= GEO_FINE_RES[-1] + 1e-3,
+                  f"pair (0, {k}) fine stage vs CPU: {ferr:.3e}, CZT "
+                  f"{fine['fhz']}/{cf['fhz']} Hz, FDOA {fine['ff']}/"
+                  f"{cf['ff']} Hz, delay {fine['td']}/{cf['td']} s")
+            td_true, fd_true = geo_truth(sc, k)
+            td = m["tdoa"][k - 1]
+            check(abs(td - td_true) < 5 * m["td_sigma"]
+                  and abs(fine["ff"] - fd_true) < 5 * m["fd_sigma"],
+                  f"pair (0, {k}): TDOA {td:.9e} s (true {td_true:.9e}), "
+                  f"FDOA {fine['ff']:.3f} Hz (true {fd_true:.3f})")
+            pairs.append({"pair": [0, k], "shift": shift, "bin": bin_,
+                          "qf2": qf2, "block_rel_err": err,
+                          "czt_hz": fine["fhz"], "fdoa_hz": fine["ff"],
+                          "fdoa_true_hz": fd_true, "tdoa_s": td,
+                          "tdoa_true_s": td_true, "fine_rel_err": ferr})
+
+        # the whole grid against the CPU's; the located point and the CRB
+        cpu_loc = TDFDGridLocalizer.from_xy_meshgrid(xr, xr, 0.0,
+                                                     device="cpu")
+        ccost = geo_run_grid(cpu_loc, m).numpy()
+        gcost = cost.cpu().numpy()
+        grid_err = float(np.max(np.abs(gcost - ccost)
+                                / np.maximum(1.0, np.abs(ccost))))
+        gi, ci = int(np.argmin(gcost)), int(np.argmin(ccost))
+        adjacent = (abs(gi // GEO_GRID - ci // GEO_GRID) <= 1
+                    and abs(gi % GEO_GRID - ci % GEO_GRID) <= 1)
+        check(grid_err <= GEO_GRID_RTOL and (gi == ci or adjacent),
+              f"grid vs CPU: {grid_err:.3e} of max(1, |cost|), argmin "
+              f"{gi}/{ci}")
+        t_crb = []
+        for _ in range(5):
+            c0 = time.perf_counter()
+            crb = geo_crb(m, located)
+            t_crb.append((time.perf_counter() - c0) * 1e3)
+        cxy = crb["crb"][:2, :2]
+        d = located[:2] - np.asarray(GEO_EMITTER)[:2]
+        maha = float(d @ np.linalg.solve(cxy, d))
+        lam = np.linalg.eigvalsh(cxy)
+        a95 = float(np.sqrt(crb["k95"] * lam[-1]))
+        step = float(xr[1] - xr[0])
+        # the grid's argmin g scores no worse than the point nearest the
+        # cost's continuous minimum m, at most half a cell's diagonal h
+        # away; the cost's curvature is the FIM's, so |g - m| <=
+        # sqrt(cond) * h, and m lies within a95 of the emitter
+        cond = float(lam[-1] / lam[0])
+        allowed = a95 + np.sqrt(cond) * step * np.sqrt(0.5)
+        miss = float(np.linalg.norm(d))
+        check(maha <= crb["k95"] or miss <= allowed,
+              f"emitter {miss:.1f} m from the located point: Mahalanobis^2 "
+              f"{maha:.2f} > {crb['k95']:.2f} and > {allowed:.1f} m")
+
+        # propagate_signal_exact on the card vs on the CPU: the burst's
+        # first exact_n samples along receiver 1's tau
+        tau1 = sc["taus"][1][GEO_T0: GEO_T0 + GEO_EXACT_N]
+        ex = propagate_signal_exact(tmpl[:GEO_EXACT_N], tau1, GEO_FS, GEO_FC)
+        ex_cpu = propagate_signal_exact(tmpl[:GEO_EXACT_N].cpu(), tau1.cpu(),
+                                        GEO_FS, GEO_FC)
+        ex_err = rel_err(ex.cpu(), ex_cpu)
+        check(ex_err < GEO_EXACT_RTOL,
+              f"propagate_signal_exact vs CPU: {ex_err:.3e}")
+
+        # times, each on CUDA events around the public call
+        pipe_ms = median_ms(lambda: pipeline(1)[0].close(), reps=3)
+        fine_ms = median_ms(lambda: [geo_fine(tmpl, caps[k], s, b) for
+                                     k, (s, _, b) in zip((1, 2, 3), peaks)],
+                            reps=3)
+        grid_ms = median_ms(lambda: geo_run_grid(loc, m), reps=5)
+        exact_ms = median_ms(lambda: propagate_signal_exact(
+            tmpl[:GEO_EXACT_N], tau1, GEO_FS, GEO_FC), reps=3)
+        # the CAF kernel alone at a block of the pipeline, and its twin
+        cc = tmpl.conj().resolve_conj().contiguous()
+        b0 = peaks[0][0] // GEO_BLOCK * GEO_BLOCK
+        k_ms = median_ms(lambda: caf_peak(caps[1], cc, b0, 1, GEO_BLOCK,
+                                          GEO_BATCH), reps=3)
+        p_ms = median_ms(lambda: caf_peak_plain(caps[1], cc, b0, 1, GEO_BLOCK,
+                                                GEO_BATCH), reps=3)
+        for db, _ in pipes:
+            db.close()
+
+    shifts_searched = nblocks * GEO_BLOCK
+    out = {
+        "scene_ms": scene_ms, "pipeline_ms_per_pair": pipe_ms,
+        "gsample_shift_per_s": GEO_BURST * shifts_searched / pipe_ms / 1e6,
+        "fine_ms_3_pairs": fine_ms, "grid_ms": grid_ms,
+        "gpoint_pair_per_s": GEO_GRID * GEO_GRID * 3 / grid_ms / 1e6,
+        "crb_host_ms": statistics.median(t_crb),
+        "propagate_exact_ms": exact_ms, "route": route,
+        "blocks_per_pair": nblocks, "launches_per_block": chunks,
+        "launches": launches, "pairs": pairs,
+        "located_m": [float(located[0]), float(located[1])],
+        "emitter_m": list(GEO_EMITTER[:2]), "miss_m": miss,
+        "mahalanobis_sq": maha, "a95_m": a95, "crb_cond": cond,
+        "allowed_m": allowed,
+        "allowed_cells": allowed / step, "grid_step_m": step,
+        "grid_argmin_card_cpu": [gi, ci], "grid_err": grid_err,
+        "td_sigma_s": m["td_sigma"], "fd_sigma_hz": m["fd_sigma"],
+        "exact_rel_err": ex_err}
+    plan = caf_plan(GEO_BURST)
+    caf_row = {
+        "shape": f"n={GEO_BURST} x {GEO_BLOCK} shifts (a pipeline block)",
+        "launches": launches["caf_peak"], "max_abs_err": max(abs_errs),
+        "ms": k_ms, "plain_ms": p_ms, "factors": list(plan["factors"]),
+        **bound(plan_flop(plan) * GEO_BLOCK,
+                GEO_BLOCK * (9.0 * GEO_BURST + fft_flop(GEO_BURST)),
+                8 * (2 * GEO_BURST + 2 * GEO_BLOCK - 1))}
+    return out, caf_row
 
 
 def main() -> int:
@@ -1294,6 +1689,35 @@ def main() -> int:
     demod = demod_layer(dev, tag, every)
     print("demod layer:", json.dumps(demod))
 
+    # this slice's path: TDOA/FDOA geolocation, counts at 0 before it
+    geo, geo_caf = geolocation(dev, every)
+    print(f"geolocation scene: 4 captures of {GEO_CAPTURE} samples "
+          f"(float64 synthesis, complex64 out) {geo['scene_ms']:.4f} ms {tag}")
+    print(f"geolocation pipeline: {geo['blocks_per_pair']} blocks of "
+          f"{GEO_BLOCK} shifts at n={GEO_BURST} a pair, route "
+          f"{geo['route']}, caf_peak launches {geo['launches']['caf_peak']} "
+          f"for 3 pairs ({geo['launches_per_block']} a block); "
+          f"{geo['pipeline_ms_per_pair']:.4f} ms a pair "
+          f"({geo['gsample_shift_per_s']:.3f} Gsample-shift/s) {tag}")
+    print(f"geolocation fine stage (czt_xcorr + fine_freq_time_search), 3 "
+          f"pairs: {geo['fine_ms_3_pairs']:.4f} ms {tag}")
+    print(f"geolocation grid: TDFD over {GEO_GRID}x{GEO_GRID} points, 3 "
+          f"pairs: {geo['grid_ms']:.4f} ms ({geo['gpoint_pair_per_s']:.3f} "
+          f"Gpoint-pair/s); located {geo['miss_m']:.1f} m from the emitter "
+          f"(allowed {geo['allowed_m']:.1f} m = {geo['allowed_cells']:.2f} "
+          f"cells: the 95% CRB ellipse's semi-major axis "
+          f"{geo['a95_m']:.1f} m plus sqrt(cond {geo['crb_cond']:.1f}) "
+          f"half diagonals of a cell) {tag}")
+    print(f"geolocation host CRB + 95% ellipse: {geo['crb_host_ms']:.4f} ms; "
+          f"propagate_signal_exact N={GEO_EXACT_N}: "
+          f"{geo['propagate_exact_ms']:.4f} ms, rel err vs CPU "
+          f"{geo['exact_rel_err']:.3e} {tag}")
+    print(f"caf_peak at the pipeline's block (n={GEO_BURST} x {GEO_BLOCK}): "
+          f"kernel {geo_caf['ms']:.4f} ms, plain {geo_caf['plain_ms']:.4f} "
+          f"ms, bound {geo_caf['bound_ms']:.4f} ms ({geo_caf['bound_by']}) "
+          f"{tag}")
+    print("geolocation:", json.dumps(geo))
+
     # 4) whole-step time -------------------------------------------------------
     step_ms = median_ms(lambda: rcv.step(tri, xri), reps=5)
     print(f"receiver step, {ROWS * NCH} samples: {step_ms:.4f} ms "
@@ -1356,7 +1780,9 @@ def main() -> int:
                             "max_abs_err": rx_caf["max_abs_err"],
                             "ms": rx_caf["ms"],
                             "plain_ms": rx_caf["plain_ms"],
-                            **plan_keys(rx_caf)}},
+                            **plan_keys(rx_caf)},
+         "geolocation_shape": {**geo_caf,
+                               "library_ms": geo_caf["plain_ms"]}},
         {"name": "caf3_peak", "route": "cuda",
          "source": "pydsproutines_tpu_torch/csrc/fused_caf3.cu",
          "replaces": "pydsproutines_tpu/ops/pallas/fused_caf3.py:166",
@@ -1426,7 +1852,11 @@ def main() -> int:
     ], "receiver_step_ms": step_ms, "detection_chain_ms": det_ms,
         "resampling_chain_ms": fir_chain_ms, "group_xcorr_ms": gx_ms,
         "group_xcorr_gsample_shift_per_s": gx_rate,
-        "sliding_ms": sl_path_ms, "card": card}))
+        "sliding_ms": sl_path_ms,
+        "geolocation": {k: geo[k] for k in (
+            "scene_ms", "pipeline_ms_per_pair", "gsample_shift_per_s",
+            "fine_ms_3_pairs", "grid_ms", "gpoint_pair_per_s",
+            "crb_host_ms", "propagate_exact_ms")}, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

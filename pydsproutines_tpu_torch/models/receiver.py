@@ -93,7 +93,7 @@ class WidebandReceiver(nn.Module):
         x = channels[:, int(torch.argmax(energy))].contiguous()
 
         shifts = torch.arange(self.num_shifts, device=x.device)
-        qf2, freqbins = _fast_xcorr_impl(
+        (qf2, freqbins), _ = _fast_xcorr_impl(
             template, x, shifts, n=self.template_len,
             batch_size=min(128, self.num_shifts), step=1)
         ipeak = int(torch.argmax(qf2))

@@ -222,9 +222,17 @@ def _fast_xcorr_impl(cutout: torch.Tensor, rx: torch.Tensor,
                      shifts: torch.Tensor, *, n: int, batch_size: int,
                      step: int | None = None, freqsearch: bool = True,
                      output_caf: bool = False, abs_result: bool = True):
-    """The routed core of fast_xcorr; returns what fast_xcorr returns."""
-    path, _ = select_xcorr_path(n, cutout.dtype, step, rx.device,
-                                freqsearch, output_caf, abs_result)
+    """The routed core of fast_xcorr; returns (what fast_xcorr returns,
+    the (path, reason) of ``select_xcorr_path`` that it dispatched)."""
+    route = select_xcorr_path(n, cutout.dtype, step, rx.device, freqsearch,
+                              output_caf, abs_result)
+    return _run_route(route[0], cutout, rx, shifts, n, batch_size, step,
+                      abs_result), route
+
+
+def _run_route(path: str, cutout: torch.Tensor, rx: torch.Tensor,
+               shifts: torch.Tensor, n: int, batch_size: int,
+               step: int | None, abs_result: bool):
     rdt = real_dtype_for(rx.dtype)
     cutout_conj = cutout.conj().resolve_conj().contiguous()
     cutout_norm_sq = _abs_sq(cutout).sum(dtype=torch.float64)
@@ -287,6 +295,21 @@ def fast_xcorr(cutout: torch.Tensor, rx: torch.Tensor,
     JAX package; the port computes in f32 throughout and ignores it.
     """
     del precision  # f32 throughout; see the module docstring
+    shifts, step, batch_size = _checked_shifts(cutout, rx, shifts, step,
+                                               batch_size)
+    return _fast_xcorr_impl(cutout, rx, shifts, n=cutout.shape[-1],
+                            batch_size=batch_size, step=step,
+                            freqsearch=bool(freqsearch),
+                            output_caf=bool(output_caf),
+                            abs_result=bool(abs_result))[0]
+
+
+def _checked_shifts(cutout: torch.Tensor, rx: torch.Tensor, shifts,
+                    step: int | None, batch_size: int):
+    """fast_xcorr's shifts on ``rx``'s device (every full-overlap shift when
+    None, raising when one runs past ``rx``), their uniform step (declared,
+    or detected from host-visible shifts) and the chunk size capped at their
+    count."""
     n = cutout.shape[-1]
     if n > rx.shape[-1]:
         raise ValueError(f"cutout (len {n}) is longer than rx "
@@ -303,11 +326,7 @@ def fast_xcorr(cutout: torch.Tensor, rx: torch.Tensor,
         raise ValueError(f"shifts [{int(shifts.min())}, {int(shifts.max())}] "
                          f"+ cutout length {n} exceed rx length "
                          f"{rx.shape[-1]}")
-    batch_size = int(min(batch_size, shifts.shape[0]))
-    return _fast_xcorr_impl(cutout, rx, shifts, n=n, batch_size=batch_size,
-                            step=step, freqsearch=bool(freqsearch),
-                            output_caf=bool(output_caf),
-                            abs_result=bool(abs_result))
+    return shifts, step, int(min(batch_size, shifts.shape[0]))
 
 
 def calc_qf2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

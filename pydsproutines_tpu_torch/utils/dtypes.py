@@ -34,9 +34,22 @@ _REAL_OF = {
 }
 
 
+_COMPLEX_OF = {
+    torch.float32: torch.complex64,
+    torch.float64: torch.complex128,
+    torch.complex64: torch.complex64,
+    torch.complex128: torch.complex128,
+}
+
+
 def real_dtype_for(dtype: torch.dtype) -> torch.dtype:
     """Return the matching real dtype for a complex (or real) dtype."""
     return _REAL_OF[dtype]
+
+
+def complex_dtype_for(dtype: torch.dtype) -> torch.dtype:
+    """Return the matching complex dtype for a real (or complex) dtype."""
+    return _COMPLEX_OF[dtype]
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
