@@ -76,7 +76,26 @@
    of each pipeline, the fine stage, the whole cost grid) and the scene's
    truth (TDOA and FDOA within 5 sigma, the emitter within the CRB's 95%
    semi-major axis plus sqrt(cond) half cell diagonals of the located
-   point).
+   point). Last, with every count at 0 before it, the capture-to-analysis
+   path (``analysis``): the receiver's 8M-sample scene written as int16
+   I/Q to eight files of 2^20 samples, read back by
+   ``io.StreamingCaptureLoader`` (halo 0; the native or the numpy loader,
+   printed) and channelised a frame at a time by one ``Channeliser`` (#1,
+   8 launches; against one channelisation of the whole capture),
+   ``multichannel_minmax_scale`` in both modes, ``fast_xcorr`` of the
+   strongest channel over 256 shifts (#2; the planted shift 176, bin 0),
+   ``cancel_signal_at_idx`` of the template at the peak (it must remove
+   the window's QF^2 share) and of the burst as the channel received it
+   (residual norm < 0.2), ``music_xcorr_device`` over the peak +- 64
+   (one launch of #5), ``PSKOrderDetector`` on 256 x 4096 BPSK/QPSK/8PSK
+   rows, ``estimate_offset_via_cm`` on 2^20 QPSK symbols,
+   ``estimate_baud``, ``MatrixProfile(output_chains=True)`` at n = 16,384,
+   w = 256 over all 16,128 diagonals (its window sums through #5; a
+   planted motif found as a chain; 64 diagonals of ``matrix_profile``
+   against float64 numpy), and the masked-row
+   products at 1024 x 8192; each against the same call on the CPU, timed,
+   with the device busy share and heaviest kernels of the path, MUSIC and
+   the matrix profile from the profiler (device events only).
    Checks the routes, the launch counts, the planted channel, edges, shifts
    and bins, the receiver's answer and the detection chain's against the
    same calls on the CPU (plain twins), both big-window routes and the group
@@ -226,6 +245,45 @@ GEO_TD_BAND = (-GEO_FS / GEO_UP, GEO_FS / GEO_UP)
 # (its float32 parity test's bound)
 GEO_GRID_RTOL, GEO_EXACT_N, GEO_EXACT_RTOL = 1e-4, 8192, 1e-5
 LIGHTSPEED = 299792458.0
+# the analysis phase: the receiver's scene (``scene_burst``, seed 7: 64 ch,
+# 2048 taps, a 1024-symbol template, 256 shifts) written as int16 I/Q to
+# eight files of 2^20 samples, its largest component at half of full scale;
+# the burst's CAF peak in channel 1: the template's symbols start at
+# channel-rate sample (128 + 32) and the 2048-tap prototype delays them by
+# 16.5 samples, so the peak is at shift 176, bin 0 (the channel's centre)
+AN_FILES, AN_FILE_SAMPS, AN_INT16_PEAK = 8, 1 << 20, 0.5 * 32767
+AN_CHANNEL, AN_SHIFT, AN_BIN = 1, 176, 0
+# MUSIC around the peak: +-64 shifts, dsr 4, 130 rows (the JAX default), a
+# 32-tap FIR of cutoff 0.8/dsr, 201 frequencies over +-2 CAF bins, p = 1, 2
+AN_MU_HALF, AN_MU_DSR, AN_MU_ROWS, AN_MU_TAPS, AN_MU_POINTS = 64, 4, 130, \
+    32, 201
+# blind modulation: 256 rows x 4096 symbols a batch (the QPSK batch cell's
+# rows) at Es/N0 20 dB; a 2^20-symbol QPSK burst with a carrier offset of
+# 0.0123456 cycles a sample for the CM estimate; half-sine BPSK at 8 samples
+# a symbol for the baud
+AN_PSK_ROWS, AN_PSK_LEN, AN_PSK_SIGMA = 256, 4096, np.sqrt(0.01 / 2)
+AN_CM_LEN, AN_CM_F0, AN_BAUD_SYMS, AN_BAUD_UP = 1 << 20, 0.0123456, 4096, 8
+# the matrix profile at the JAX benchmark's defaults
+# (benchmarks/benchmark_matrixprofile.py: n = 16,384, w = 256, every
+# diagonal), a 256-symbol motif at sample 1000 repeated 9000 samples later
+# in noise of 0.05 a component; 64 diagonals held to float64 numpy
+AN_MP_N, AN_MP_W, AN_MP_AT, AN_MP_LAG, AN_MP_HELD = 16384, 256, 1000, 9000, \
+    64
+AN_MP_ATOL = 1e-4                         # times max(1, |v|)
+# masked rows: 1024 x 8192 complex64, one row in 8 selected, capacity 128
+AN_MASK_ROWS, AN_MASK_LEN, AN_MASK_EVERY, AN_MASK_CAP = 1024, 8192, 8, 128
+# card vs CPU: min-max scaling within 1e-6 (values in [0, 1]); the
+# cancellation's amplitude within rtol 1e-5; the masked products within
+# 1e-6 of max |ref|; MUSIC's inverse grids within the JAX eig test's
+# rtol 1e-3, atol 1e-6 * max (tests/test_analysis_ops.py:268-306) wherever
+# the CPU's grid is at least AN_MU_NOTCH of its shift's maximum, and the
+# grid within AN_MU_NOTCH of that maximum everywhere: at shifts of noise
+# alone a p = 1 pseudospectrum has notches (values 1e-5 of their
+# neighbours) where a 1-ulp change of the covariance moves the value by
+# up to 134% (a CPU rehearsal with a perturbed covariance), so no two f32
+# machines agree there to 1e-3
+AN_MINMAX_ATOL, AN_CANCEL_RTOL, AN_MASK_RTOL, AN_MU_NOTCH = 1e-6, 1e-5, \
+    1e-6, 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -398,21 +456,32 @@ def hold_peaks(name, km, kb, pm, pb, i_star, f_star) -> float:
     return err
 
 
-def wideband_scene(rcv, n_wide: int, seed: int):
-    """(template_ri, rx_ri) on the receiver's device: a QPSK template held
-    for one channel-rate sample per symbol (a rectangular pulse of Dec
-    samples), on the channel-1 tone, in noise. Unlike the impulse-train
-    example of ``example_inputs``, its energy sits in channel 1, so the
-    strongest channel is the planted one."""
-    import torch
+def scene_burst(dec: int, taps: int, template_len: int, num_shifts: int,
+                n_wide: int, seed: int):
+    """(QPSK template, complex128 noisy capture, its planted burst alone)
+    of ``wideband_scene``: the template held for one channel-rate sample a
+    symbol (a rectangular pulse of Dec samples) on the channel-1 tone from
+    wideband sample (num_shifts // 2 + taps // dec) * dec, in noise of 0.1
+    a component."""
     rng = np.random.default_rng(seed)
-    dec = rcv.dec
-    syms = np.exp(1j * (np.pi / 2) * rng.integers(0, 4, rcv.template_len))
+    syms = np.exp(1j * (np.pi / 2) * rng.integers(0, 4, template_len))
     rx = 0.1 * (rng.standard_normal(n_wide) + 1j * rng.standard_normal(n_wide))
-    start = (rcv.num_shifts // 2 + rcv.num_taps // dec) * dec
-    span = slice(start, start + rcv.template_len * dec)
+    start = (num_shifts // 2 + taps // dec) * dec
+    span = slice(start, start + template_len * dec)
     t = np.arange(span.start, span.stop)
-    rx[span] += np.repeat(syms, dec) * np.exp(2j * np.pi * t / rcv.num_channels)
+    burst = np.zeros(n_wide, complex)
+    burst[span] = np.repeat(syms, dec) * np.exp(2j * np.pi * t / dec)
+    return syms, rx + burst, burst
+
+
+def wideband_scene(rcv, n_wide: int, seed: int):
+    """(template_ri, rx_ri) on the receiver's device: ``scene_burst``'s
+    template and capture. Unlike the impulse-train example of
+    ``example_inputs``, its energy sits in channel 1, so the strongest
+    channel is the planted one."""
+    import torch
+    syms, rx, _ = scene_burst(rcv.dec, rcv.num_taps, rcv.template_len,
+                              rcv.num_shifts, n_wide, seed)
     tri = np.stack([syms.real, syms.imag]).astype(np.float32)
     xri = np.stack([rx.real, rx.imag]).astype(np.float32)
     dev = rcv.f_tap.device
@@ -1094,6 +1163,445 @@ def geolocation(dev, kernels) -> tuple[dict, dict]:
     return out, caf_row
 
 
+def int16_capture(rx: np.ndarray, files: int, peak: float):
+    """(files x 2n int16 interleaved I/Q, scale): ``rx`` scaled so its
+    largest component reads ``peak`` counts, rounded, split into files."""
+    scale = peak / max(np.abs(rx.real).max(), np.abs(rx.imag).max())
+    iq = np.stack([rx.real, rx.imag], -1) * scale
+    return np.round(iq).astype(np.int16).reshape(files, -1), scale
+
+
+def psk_order_scene(seed: int, rows: int, length: int, sigma: float):
+    """Two batches of ``rows`` PSK rows in noise of ``sigma`` a component,
+    complex64, with the orders ``PSKOrderDetector`` must read: BPSK then
+    QPSK under max_m = 4, QPSK then 8PSK under max_m = 8."""
+    rng = np.random.default_rng(seed)
+
+    def batch(m1, m2):
+        m = np.repeat([m1, m2], rows // 2)
+        k = rng.integers(0, 8, (rows, length)) // (8 // m)[:, None]
+        x = np.exp(2j * np.pi * k / m[:, None])
+        x += sigma * (rng.standard_normal(x.shape)
+                      + 1j * rng.standard_normal(x.shape))
+        return x.astype(np.complex64), m
+
+    return {4: batch(2, 4), 8: batch(4, 8)}
+
+
+def cm_scene(seed: int, n: int, f0: float, sigma: float) -> np.ndarray:
+    """A QPSK burst of ``n`` symbols at ``f0`` cycles a sample, complex64."""
+    rng = np.random.default_rng(seed)
+    x = np.exp(0.5j * np.pi * rng.integers(0, 4, n) + 2j * np.pi * f0
+               * np.arange(n))
+    x += sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return x.astype(np.complex64)
+
+
+def baud_scene(seed: int, syms: int, up: int) -> np.ndarray:
+    """Half-sine BPSK at ``up`` samples a symbol (tests/test_analysis_ops.py's
+    baud scene), complex128."""
+    bits = np.random.default_rng(seed).integers(0, 2, syms)
+    x = np.zeros(syms * up)
+    x[::up] = bits * 2.0 - 1.0
+    return np.convolve(x, np.sin(np.pi * np.arange(up) / up))[
+        : syms * up].astype(complex)
+
+
+def motif_scene(seed: int, n: int, w: int, at: int, lag: int) -> np.ndarray:
+    """Noise of 0.05 a component with one w-symbol QPSK motif at ``at`` and
+    again at ``at + lag``, complex64."""
+    rng = np.random.default_rng(seed)
+    x = 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    motif = np.exp(0.5j * np.pi * rng.integers(0, 4, w))
+    x[at: at + w] += motif
+    x[at + lag: at + lag + w] += motif
+    return x.astype(np.complex64)
+
+
+def mp_reference(x: np.ndarray, w: int, d: int) -> np.ndarray:
+    """Diagonal d of the normalized matrix profile in float64 numpy (window
+    sums by float64 prefix sums: exact enough for a reference)."""
+    x = x.astype(np.complex128)
+
+    def sums(v):
+        c = np.concatenate([[0], np.cumsum(v)])
+        return c[w:] - c[:-w]
+
+    norms = sums(np.abs(x) ** 2)
+    k = sums(x[:-d] * x[d:].conj())
+    return np.abs(k) ** 2 / norms[:-d] / norms[d:]
+
+
+def device_profile(fn, top: int = 5) -> dict:
+    """One call of ``fn`` under the profiler's CUDA activity alone: the
+    host's wall ms (the call ends in a synchronize); the device's busy ms,
+    the union of the intervals of its device events (kernels, copies,
+    sets), each counted once, as torch's own table counts only device
+    events; the busy share, busy over wall; and the ``top`` kernels by
+    device ms, each [name, ms, launches]. NaN and an empty list where the
+    profiler saw no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, reach, by_name = 0.0, float("-inf"), {}
+    for start, end, name in spans:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + end - start, n + 1)
+    busy_ms = busy_us / 1e3 if spans else float("nan")
+    heavy = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms, "device_events": len(spans),
+            "top": [[name[:60], us / 1e3, n] for name, (us, n) in heavy]}
+
+
+def analysis(dev, kernels) -> dict:
+    """The capture-to-analysis path on ``dev`` through the public entry
+    points: the receiver's 8M-sample scene written as int16 I/Q files, read
+    back by ``StreamingCaptureLoader`` (halo 0) and each frame channelised
+    on the card by one ``Channeliser`` (#1); ``multichannel_minmax_scale``
+    in both modes; the strongest channel's ``fast_xcorr`` over 256 shifts
+    (#2); ``cancel_signal_at_idx`` of the template at the peak and of the
+    burst as the channel received it; ``music_xcorr_device`` around the
+    peak (its FIR one launch of #5); ``PSKOrderDetector``,
+    ``estimate_offset_via_cm`` and ``estimate_baud``;
+    ``MatrixProfile(output_chains=True)`` at the JAX benchmark's size (its
+    window sums through #5); the three masked-row products. Every kernel count is set
+    to 0 before the path and read after it, against the counts the code
+    predicts; each step is then held against the same call on the CPU and
+    the scene's truth, and timed on CUDA events (median of 3). The whole
+    path, MUSIC and the matrix profile are each profiled once more for
+    their device busy time and heaviest kernels."""
+    import os
+    import tempfile
+    import torch
+    from scipy import signal as sps
+    from pydsproutines_tpu_torch.io import (StreamingCaptureLoader,
+                                            is_int16_clipping)
+    from pydsproutines_tpu_torch.ops import (
+        Channeliser, MatrixProfile, PSKOrderDetector, cancel_signal_at_idx,
+        estimate_baud, estimate_offset_via_cm, fast_xcorr, matrix_profile,
+        multichannel_minmax_scale, multiply_masked_rows_gathered,
+        multiply_only_masked_rows, multiply_rows_based_on_mask,
+        music_xcorr_device)
+    from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import \
+        SCRATCH_BYTES_PER_SAMPLE
+    from pydsproutines_tpu_torch.ops.hopper.upfirdn import upfirdn_planes
+    from pydsproutines_tpu_torch.utils.memory import chunk_shifts
+    from pydsproutines_tpu_torch.utils.timing import median_ms
+
+    secs, t0 = {}, time.perf_counter()
+
+    def lap(name):                       # host seconds of each section
+        nonlocal t0
+        t1 = time.perf_counter()
+        secs[name] = t1 - t0
+        t0 = t1
+
+    n_wide = AN_FILES * AN_FILE_SAMPS
+    syms, rx, burst = scene_burst(NCH, TAPS, N_RX, SHIFTS_RX, n_wide, seed=7)
+    raw, scale = int16_capture(rx, AN_FILES, AN_INT16_PEAK)
+    capture = raw.reshape(-1).astype(np.float32).view(np.complex64)
+    template = torch.from_numpy(syms.astype(np.complex64)).to(dev)
+    # the burst alone, as the channel receives it (scene, not path)
+    replica = Channeliser(TAPS, NCH, device=dev).channelise(
+        torch.from_numpy((burst * scale).astype(np.complex64)).to(dev))
+    psk = psk_order_scene(51, AN_PSK_ROWS, AN_PSK_LEN, AN_PSK_SIGMA)
+    cm_x = cm_scene(52, AN_CM_LEN, AN_CM_F0, AN_PSK_SIGMA)
+    baud_x = baud_scene(53, AN_BAUD_SYMS, AN_BAUD_UP)
+    mp_x = motif_scene(54, AN_MP_N, AN_MP_W, AN_MP_AT, AN_MP_LAG)
+    g = torch.Generator(device=dev).manual_seed(55)
+    mx, my, my1 = (torch.randn((AN_MASK_ROWS, AN_MASK_LEN),
+                               dtype=torch.complex64, device=dev,
+                               generator=g) for _ in range(3))
+    mask = torch.zeros(AN_MASK_ROWS, dtype=torch.int32, device=dev)
+    mask[::AN_MASK_EVERY] = 1
+    mu_taps = sps.firwin(AN_MU_TAPS, 0.8 / AN_MU_DSR)
+    num_diags = AN_MP_N - AN_MP_W
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"{1000 + i}.bin") for i in range(AN_FILES)]
+        for part, path in zip(raw, paths):
+            part.tofile(path)
+
+        def read_and_channelise():
+            chan = Channeliser(TAPS, NCH, device=dev)
+            frames, outs = [], []
+            with StreamingCaptureLoader(paths, AN_FILE_SAMPS, halo=0) as ldr:
+                loader = "native" if ldr._handle is not None else "numpy"
+                for _, frame in ldr:
+                    frames.append(frame)
+                    outs.append(chan.channelise(torch.from_numpy(frame).to(dev)))
+            return frames, torch.cat(outs), loader
+
+        def music(x, pk, f_pk):
+            return music_xcorr_device(
+                template, x, f_pk + np.linspace(-2, 2, AN_MU_POINTS) / N_RX,
+                mu_taps, 1.0, AN_MU_DSR, [1, 2], musicrows=AN_MU_ROWS,
+                shifts=np.arange(pk - AN_MU_HALF, pk + AN_MU_HALF))
+
+        e_rep = replica[:, AN_CHANNEL].abs() ** 2
+        nz = torch.nonzero(e_rep > 1e-6 * e_rep.max()).flatten()
+        span = (int(nz[0]), int(nz[-1]) + 1)
+
+        def path():
+            r = {}
+            r["frames"], chans, r["loader"] = read_and_channelise()
+            r["chans"] = chans
+            ch = chans.T.contiguous()
+            r["scaled"] = multichannel_minmax_scale(ch)
+            r["scaled_c"] = multichannel_minmax_scale(ch, preserve_phase=True)
+            energy = torch.mean(chans.real ** 2 + chans.imag ** 2, dim=0)
+            r["best"] = best = int(torch.argmax(energy))
+            r["x"] = x = chans[:, best].contiguous()
+            r["qf2"], r["bins"] = fast_xcorr(
+                template, x, True, shifts=torch.arange(SHIFTS_RX, device=dev))
+            r["pk"] = pk = int(torch.argmax(r["qf2"]))
+            b = int(r["bins"][pk])
+            r["f_pk"] = ((b + N_RX // 2) % N_RX - N_RX // 2) / N_RX
+            r["cancel"] = cancel_signal_at_idx(template, x, pk)
+            lo, hi = span
+            r["cancel_rep"] = cancel_signal_at_idx(replica[lo:hi, best], x, lo)
+            before = upfirdn_planes.launches
+            r["grids"] = music(x, pk, r["f_pk"])
+            r["music_launches"] = upfirdn_planes.launches - before
+            r["orders"] = {m: PSKOrderDetector(m).estimate_order(
+                torch.from_numpy(psk[m][0]).to(dev)) for m in (4, 8)}
+            r["offset"] = float(estimate_offset_via_cm(
+                torch.from_numpy(cm_x).to(dev), 1.0, 4))
+            r["baud"] = estimate_baud(baud_x, 1.0)[0]
+            r["chains"] = MatrixProfile(AN_MP_W, output_chains=True,
+                                        min_threshold=0.5).compute(
+                torch.from_numpy(mp_x).to(dev))
+            r["masked"] = (multiply_only_masked_rows(mask, mx, my),
+                           multiply_rows_based_on_mask(mask, mx, my, my1),
+                           multiply_masked_rows_gathered(mask, mx, my,
+                                                         AN_MASK_CAP))
+            torch.cuda.synchronize()
+            return r
+
+        lap("scene")
+        # the path, every count at 0 just before it
+        for kernel in kernels:
+            kernel.launches = 0
+        r = path()
+        launches = {k.__name__: k.launches for k in kernels}
+        want = {k.__name__: 0 for k in kernels}
+        want["wola_fused"] = AN_FILES
+        want["caf_peak"] = -(-SHIFTS_RX // chunk_shifts(
+            N_RX, min(128, SHIFTS_RX), SCRATCH_BYTES_PER_SAMPLE))
+        # MUSIC's FIR, then the matrix profile's norms and one a batch
+        want["upfirdn_planes"] = 1 + 1 + -(-num_diags // 64)
+        check(launches == want, f"analysis launches {launches}, expected "
+                                f"{want}")
+        check(r["music_launches"] == 1,
+              f"music_xcorr_device launched #5 {r['music_launches']} times")
+
+        lap("path")
+        # the capture read back, and streaming continuity
+        frames, chans = r["frames"], r["chans"]
+        check(all(isinstance(f, np.ndarray) and f.dtype == np.complex64
+                  and f.shape == (AN_FILE_SAMPS,) for f in frames)
+              and np.array_equal(np.concatenate(frames), capture),
+              "the frames read differ from the capture written")
+        check(not is_int16_clipping(capture)
+              and not any(is_int16_clipping(f) for f in frames),
+              "the capture clips")
+        whole = Channeliser(TAPS, NCH, device=dev).channelise(
+            torch.from_numpy(capture).to(dev))
+        stream_err = rel_err(chans, whole)
+        check(chans.shape == (n_wide // NCH, NCH) and stream_err < WOLA_RTOL,
+              f"streamed channels vs the whole capture: {stream_err:.3e}")
+        ms = {"read_channelise": median_ms(read_and_channelise, reps=3)}
+
+        # min-max scaling against the CPU
+        ch = chans.T.contiguous()
+        ch_cpu = ch.cpu()
+        mm_err = []
+        for key, mode in (("scaled", False), ("scaled_c", True)):
+            ref = multichannel_minmax_scale(ch_cpu, mode)
+            mm_err.append(float((r[key].cpu() - ref).abs().max()))
+            ms[f"minmax_{int(mode)}"] = median_ms(
+                lambda m=mode: multichannel_minmax_scale(ch, m), reps=3)
+        sc = r["scaled"]
+        check(max(mm_err) < AN_MINMAX_ATOL and float(sc.min()) == 0.0
+              and float(sc.amax(-1).min()) == 1.0,
+              f"min-max scaling card vs CPU {mm_err}")
+
+        # the burst: channel, CAF peak against the CPU and the plant
+        x, pk, best = r["x"], r["pk"], r["best"]
+        x_cpu, t_cpu = x.cpu(), template.cpu()
+        q_cpu, b_cpu = fast_xcorr(t_cpu, x_cpu, True,
+                                  shifts=torch.arange(SHIFTS_RX))
+        pk_cpu = int(torch.argmax(q_cpu))
+        check(best == AN_CHANNEL and pk == pk_cpu == AN_SHIFT
+              and int(r["bins"][pk]) == int(b_cpu[pk_cpu]) == AN_BIN,
+              f"burst at channel {best}, shift {pk} (CPU {pk_cpu}), bin "
+              f"{int(r['bins'][pk])}")
+        ms["fast_xcorr"] = median_ms(lambda: fast_xcorr(
+            template, x, True, shifts=torch.arange(SHIFTS_RX, device=dev)),
+            reps=3)
+
+        # cancellation: the template at the peak removes its share QF^2 of
+        # the window's energy; the burst as received leaves the noise
+        win = slice(pk, pk + N_RX)
+        (c_t, amp_t), (c_r, amp_r) = r["cancel"], r["cancel_rep"]
+        amp_t_cpu = cancel_signal_at_idx(t_cpu, x_cpu, pk)[1]
+        lo, hi = span
+        amp_r_cpu = cancel_signal_at_idx(replica[lo:hi, best].cpu(), x_cpu,
+                                         lo)[1]
+        amp_errs = [float(abs(a.cpu() - b) / abs(b)) for a, b in
+                    ((amp_t, amp_t_cpu), (amp_r, amp_r_cpu))]
+        removed = float((c_t[win].abs() ** 2).sum() / (x[win].abs() ** 2)
+                        .sum())
+        q_pk = float(r["qf2"][pk])
+        resid = float(c_r[lo:hi].norm() / x[lo:hi].norm())
+        check(max(amp_errs) < AN_CANCEL_RTOL, f"cancellation amplitudes "
+                                              f"card vs CPU {amp_errs}")
+        check(abs(removed - (1 - q_pk)) < CAF_RTOL,
+              f"template cancellation left {removed:.6f} of the window, "
+              f"1 - QF^2 = {1 - q_pk:.6f}")
+        check(resid < 0.2 and abs(complex(amp_r) - 1) < 0.05,
+              f"received-burst cancellation: residual {resid:.4f} of the "
+              f"window's norm, amplitude {complex(amp_r):.4f}")
+        ms["cancel"] = median_ms(lambda: cancel_signal_at_idx(template, x,
+                                                              pk), reps=3)
+
+        lap("capture_minmax_xcorr_cancel")
+        # MUSIC around the peak against the CPU
+        grids_cpu = music(x_cpu, pk, r["f_pk"])
+        mu = {"notch_entries": 0, "inverse_rel_err": 0.0, "row_err": 0.0}
+        for p in (1, 2):
+            a, b = r["grids"][p], grids_cpu[p]
+            rowmax = b.max(axis=1, keepdims=True)
+            held = b >= AN_MU_NOTCH * rowmax
+            inv_ok = (np.abs(1 / a - 1 / b)
+                      <= 1e-3 * np.abs(1 / b) + 1e-6 * np.max(1 / b))
+            row_err = float((np.abs(a - b) / rowmax).max())
+            check(a.shape == (2 * AN_MU_HALF, AN_MU_POINTS)
+                  and bool(np.isfinite(a).all()) and bool(inv_ok[held].all())
+                  and row_err < AN_MU_NOTCH,
+                  f"MUSIC p={p} card vs CPU: {int((~inv_ok[held]).sum())} "
+                  f"inverse-grid entries off, grid {row_err:.3e} of a row's "
+                  f"maximum")
+            i, j = np.unravel_index(np.argmax(a), a.shape)
+            check((i, j) == np.unravel_index(np.argmax(b), b.shape)
+                  and pk - AN_MU_HALF + i == AN_SHIFT,
+                  f"MUSIC p={p} peaks at shift {pk - AN_MU_HALF + i}")
+            mu["notch_entries"] += int((~held).sum())
+            mu["row_err"] = max(mu["row_err"], row_err)
+            mu["inverse_rel_err"] = max(mu["inverse_rel_err"], float(
+                (np.abs(1 / a - 1 / b) / np.abs(1 / b))[held].max()))
+        ms["music"] = median_ms(lambda: music(x, pk, r["f_pk"]), reps=3)
+
+        lap("music")
+        # blind modulation estimates against the CPU and the plants
+        for m in (4, 8):
+            rows, want_m = psk[m]
+            cpu_order = PSKOrderDetector(m).estimate_order(
+                torch.from_numpy(rows))
+            check(np.array_equal(r["orders"][m], want_m)
+                  and np.array_equal(cpu_order, want_m),
+                  f"PSK orders under max_m={m}: card "
+                  f"{np.bincount(r['orders'][m])}, CPU "
+                  f"{np.bincount(cpu_order)}")
+            rows_d = torch.from_numpy(rows).to(dev)
+            ms[f"psk_order_{m}"] = median_ms(
+                lambda d=rows_d, mm=m: PSKOrderDetector(mm).estimate_order(d),
+                reps=3)
+        off_cpu = float(estimate_offset_via_cm(torch.from_numpy(cm_x), 1.0, 4))
+        check(r["offset"] == off_cpu and abs(r["offset"] - AN_CM_F0) < 1e-3,
+              f"CM offset {r['offset']} (CPU {off_cpu}, planted {AN_CM_F0})")
+        cm_d = torch.from_numpy(cm_x).to(dev)
+        ms["offset_via_cm"] = median_ms(
+            lambda: estimate_offset_via_cm(cm_d, 1.0, 4), reps=3)
+        check(abs(r["baud"] - 1 / AN_BAUD_UP) * AN_BAUD_UP < 0.05,
+              f"baud {r['baud']} vs {1 / AN_BAUD_UP}")
+
+        lap("modulation")
+        # the matrix profile against float64 numpy and the motif
+        xm = torch.from_numpy(mp_x).to(dev)
+        mp, nout = matrix_profile(xm, AN_MP_W, num_diags), num_diags + 1
+        check(mp.shape == (num_diags, nout) and mp.dtype == torch.float32,
+              f"matrix profile shape {tuple(mp.shape)}")
+        mp_err = 0.0
+        for d in np.linspace(1, num_diags, AN_MP_HELD).astype(int):
+            row = mp[d - 1].cpu().numpy().astype(np.float64)
+            ref = mp_reference(mp_x, AN_MP_W, d)
+            mp_err = max(mp_err, float((np.abs(row[:nout - d] - ref)
+                                        / np.maximum(1, np.abs(ref))).max()))
+            check(not row[nout - d:].any(), f"diagonal {d} past its end")
+        check(mp_err < AN_MP_ATOL, f"matrix profile vs float64 {mp_err:.3e}")
+        check(any(d == AN_MP_LAG and s <= AN_MP_AT < e
+                  for d, s, e in r["chains"]),
+              f"no chain at diagonal {AN_MP_LAG} over {AN_MP_AT}: "
+              f"{r['chains'][:8]}")
+        del mp
+        ms["matrix_profile"] = median_ms(
+            lambda: matrix_profile(xm, AN_MP_W, num_diags), reps=3)
+        ms["matrix_profile_chains"] = median_ms(
+            lambda: MatrixProfile(AN_MP_W, output_chains=True,
+                                  min_threshold=0.5).compute(xm), reps=3)
+
+        lap("matrix_profile")
+        # masked rows against the CPU
+        m_cpu = [t.cpu() for t in (mask, mx, my, my1)]
+        ref = (multiply_only_masked_rows(m_cpu[0], m_cpu[1], m_cpu[2]),
+               multiply_rows_based_on_mask(*m_cpu),
+               multiply_masked_rows_gathered(m_cpu[0], m_cpu[1], m_cpu[2],
+                                             AN_MASK_CAP))
+        got = r["masked"]
+        mask_err = max(close(got[0], ref[0], AN_MASK_RTOL),
+                       close(got[1], ref[1], AN_MASK_RTOL),
+                       close(got[2][0], ref[2][0], AN_MASK_RTOL))
+        count = got[2][1]
+        check(count.dtype == torch.int32 and int(count) == int(ref[2][1])
+              == AN_MASK_ROWS // AN_MASK_EVERY, f"masked count {int(count)}")
+        ms["masked_only"] = median_ms(
+            lambda: multiply_only_masked_rows(mask, mx, my), reps=3)
+        ms["masked_two_banks"] = median_ms(
+            lambda: multiply_rows_based_on_mask(mask, mx, my, my1), reps=3)
+        ms["masked_gathered"] = median_ms(
+            lambda: multiply_masked_rows_gathered(mask, mx, my, AN_MASK_CAP),
+            reps=3)
+
+        lap("masked")
+        ms["path"] = median_ms(path, reps=3, warmup=0)
+        prof = {"path": device_profile(path),
+                "music": device_profile(lambda: music(x, pk, r["f_pk"])),
+                "matrix_profile_chains": device_profile(
+                    lambda: MatrixProfile(AN_MP_W, output_chains=True,
+                                          min_threshold=0.5).compute(xm))}
+        lap("profiled")
+
+    pairs = num_diags * nout - num_diags * (num_diags + 1) // 2
+    mp_bytes = 4 * num_diags * nout
+    return {
+        "loader": r["loader"], "launches": launches,
+        "music_launches": r["music_launches"],
+        "stream_rel_err": stream_err, "minmax_abs_err": max(mm_err),
+        "peak": [best, pk, int(r["bins"][pk])], "qf2": q_pk,
+        "cancel_amp_rel_err": max(amp_errs), "template_left": removed,
+        "received_left_norm": resid,
+        "received_amp": [complex(amp_r).real, complex(amp_r).imag],
+        "music": mu, "cm_offset": r["offset"], "baud": r["baud"],
+        "mp_err": mp_err, "mp_chains": len(r["chains"]),
+        "mp_gpairs_per_s": pairs / ms["matrix_profile"] / 1e6,
+        "mp_output_bytes": mp_bytes,
+        "mp_bytes_bound_ms": mp_bytes / HBM_BYTES_PER_S * 1e3,
+        "masked_rel_err": mask_err, "ms": ms, "profile": prof,
+        "busy_share": prof["path"]["busy_share"], "phase_s": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1515,25 +2023,25 @@ def main() -> int:
         kernel.launches = 0
     timer = Timer().start()
     out = rcv.run(tri, xri)
-    rcv_ms = timer.evt("receiver run")
+    rcv_ms = 1e3 * timer.evt("receiver run")
     qf2, bins = fast_xcorr(big["cut"], big["rx"], freqsearch=True,
                            shifts=torch.arange(SHIFTS_BIG, device=dev))
     i_big = int(torch.argmax(qf2))
-    xcorr_ms = timer.evt("fast_xcorr 1M x 128")
+    xcorr_ms = 1e3 * timer.evt("fast_xcorr 1M x 128")
     q3, b3 = fast_xcorr(cut3, rx3, True, shifts=offs3)
     i3 = int(torch.argmax(q3))
-    caf3_path_ms = timer.evt("fast_xcorr 10M x 128")
+    caf3_path_ms = 1e3 * timer.evt("fast_xcorr 10M x 128")
     q4, b4 = fast_xcorr(cut4, rx4, True, shifts=offs4)
     i4 = int(torch.argmax(q4))
-    peak_path_ms = timer.evt("fast_xcorr 1M shift list")
+    peak_path_ms = 1e3 * timer.evt("fast_xcorr 1M shift list")
     m_re, m_im = fir_upfirdn_planes_flat(h_fir, h_rs, fre, fim, UP, DOWN)
-    fir_path_ms = timer.evt("fir_upfirdn_planes_flat 4M")
+    fir_path_ms = 1e3 * timer.evt("fir_upfirdn_planes_flat 4M")
     noise, req, filtered, e_edges = energy_detection(xm, MED_K)
     e_count = int(e_edges.count)
-    energy_ms = timer.evt("energy_detection 4M")
+    energy_ms = 1e3 * timer.evt("energy_detection 4M")
     before = {k.__name__: k.launches for k in kernels}
     det = detection_chain(chan, tmpl_b, rx_b)
-    det_path_ms = timer.evt("detection chain")
+    det_path_ms = 1e3 * timer.evt("detection chain")
     launches = {k.__name__: k.launches for k in kernels}
     det_launches = {k: launches[k] - before[k] for k in launches}
     # this slice's paths, each with every count at 0 just before it
@@ -1543,14 +2051,14 @@ def main() -> int:
     timer.evt("counts reset")
     qg, fg = gx.xcorr(rx_g, offs_g)
     gi_, gj_ = np.unravel_index(int(torch.argmax(qg)), qg.shape)
-    group_path_ms = timer.evt("GroupXcorrCZT.xcorr")
+    group_path_ms = 1e3 * timer.evt("GroupXcorrCZT.xcorr")
     group_launches = {k.__name__: k.launches for k in every}
     for kernel in every:
         kernel.launches = 0
     timer.evt("counts reset")
     q_sl = sliding_multiply_normalised(xs_d, ts_d)
     sti, ssi = np.unravel_index(int(torch.argmax(q_sl)), q_sl.shape)
-    sliding_path_ms = timer.evt("sliding_multiply_normalised")
+    sliding_path_ms = 1e3 * timer.evt("sliding_multiply_normalised")
     sliding_launches = {k.__name__: k.launches for k in every}
     print(f"main path: receiver run {rcv_ms:.2f} ms, fast_xcorr "
           f"{xcorr_ms:.2f} ms (1M x 128), {caf3_path_ms:.2f} ms (10M x 128), "
@@ -1718,6 +2226,40 @@ def main() -> int:
           f"{tag}")
     print("geolocation:", json.dumps(geo))
 
+    # this slice's path: capture to analysis, counts at 0 before it
+    ana = analysis(dev, every)
+    a_ms = ana["ms"]
+    print(f"analysis capture: {AN_FILES} int16 files of {AN_FILE_SAMPS} "
+          f"samples, read by the {ana['loader']} loader and channelised a "
+          f"frame at a time (#1): {a_ms['read_channelise']:.4f} ms, vs one "
+          f"channelisation of the whole capture rel err "
+          f"{ana['stream_rel_err']:.3e}; launches on the path "
+          f"{ana['launches']} (#5 by music_xcorr_device "
+          f"{ana['music_launches']}, the rest by the matrix profile) {tag}")
+    print(f"analysis steps (ms): min-max {a_ms['minmax_0']:.4f} / "
+          f"{a_ms['minmax_1']:.4f} (magnitude / phase kept), fast_xcorr "
+          f"{a_ms['fast_xcorr']:.4f}, cancel {a_ms['cancel']:.4f}, MUSIC "
+          f"{a_ms['music']:.4f}, PSK order {a_ms['psk_order_4']:.4f} / "
+          f"{a_ms['psk_order_8']:.4f}, CM offset "
+          f"{a_ms['offset_via_cm']:.4f}, masked rows "
+          f"{a_ms['masked_only']:.4f} / {a_ms['masked_two_banks']:.4f} / "
+          f"{a_ms['masked_gathered']:.4f}; the whole path "
+          f"{a_ms['path']:.2f} ms {tag}")
+    for name, p in ana["profile"].items():
+        print(f"analysis profile of {name}: {p['wall_ms']:.2f} ms wall, "
+              f"device busy {p['busy_ms']:.2f} ms ({p['busy_share']:.3f}) in "
+              f"{p['device_events']} device events; heaviest "
+              + "; ".join(f"{k} {t:.2f} ms x{n}" for k, t, n in p["top"])
+              + f" {tag}")
+    print(f"analysis matrix profile n={AN_MP_N} w={AN_MP_W}, "
+          f"{AN_MP_N - AN_MP_W} diagonals: {a_ms['matrix_profile']:.4f} ms "
+          f"({ana['mp_gpairs_per_s']:.3f} Gpairs/s; output "
+          f"{ana['mp_output_bytes'] / 1e9:.3f} GB, bytes bound "
+          f"{ana['mp_bytes_bound_ms']:.4f} ms), with chains "
+          f"{a_ms['matrix_profile_chains']:.4f} ms; vs float64 "
+          f"{ana['mp_err']:.3e} {tag}")
+    print("analysis:", json.dumps(ana))
+
     # 4) whole-step time -------------------------------------------------------
     step_ms = median_ms(lambda: rcv.step(tri, xri), reps=5)
     print(f"receiver step, {ROWS * NCH} samples: {step_ms:.4f} ms "
@@ -1856,7 +2398,10 @@ def main() -> int:
         "geolocation": {k: geo[k] for k in (
             "scene_ms", "pipeline_ms_per_pair", "gsample_shift_per_s",
             "fine_ms_3_pairs", "grid_ms", "gpoint_pair_per_s",
-            "crb_host_ms", "propagate_exact_ms")}, "card": card}))
+            "crb_host_ms", "propagate_exact_ms")},
+        "analysis": {**ana["ms"], "busy_share": ana["busy_share"],
+                     "mp_gpairs_per_s": ana["mp_gpairs_per_s"],
+                     "launches": ana["launches"]}, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

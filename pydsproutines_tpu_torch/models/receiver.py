@@ -20,10 +20,9 @@ from torch import nn
 from pydsproutines_tpu_torch.ops.demod import get_eye_opening, lock_phase, map_syms
 from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import caf_peak
 from pydsproutines_tpu_torch.ops.hopper.wola_fused import wola_fused
-from pydsproutines_tpu_torch.ops.wola import select_wola_path, wola
+from pydsproutines_tpu_torch.ops.wola import _wola_impl
 from pydsproutines_tpu_torch.ops.xcorr import (_fast_xcorr_impl,
-                                               convert_qf2_to_eff_snr,
-                                               select_xcorr_path)
+                                               convert_qf2_to_eff_snr)
 from pydsproutines_tpu_torch.utils.device import resolve_device
 
 
@@ -66,6 +65,8 @@ class WidebandReceiver(nn.Module):
         self.osr = int(osr)
         self.demod_syms = int(demod_syms)
         self.m = int(m)
+        # the (path, reason) each router gave the last step's dispatch
+        self.wola_path = self.xcorr_path = None
 
     @classmethod
     def from_numpy_params(cls, params: dict, device=None) -> "WidebandReceiver":
@@ -83,17 +84,20 @@ class WidebandReceiver(nn.Module):
         rx_ri : (2, n_wideband) float32, re/im of the wideband capture.
 
         Returns (qf2 peak, best shift, best freq bin, per-channel energy,
-        demod symbol indices as int32).
+        demod symbol indices as int32). The channelizer's and the peak
+        search's routes, as their cores dispatched them, are kept in
+        ``wola_path`` and ``xcorr_path``.
         """
         template = torch.complex(template_ri[0], template_ri[1])
         rx = torch.complex(rx_ri[0], rx_ri[1])
 
-        channels = wola(self.f_tap, rx, self.dec, self.num_channels)
+        channels, self.wola_path = _wola_impl(self.f_tap, rx, self.dec,
+                                              self.num_channels)
         energy = torch.mean(channels.real ** 2 + channels.imag ** 2, dim=0)
         x = channels[:, int(torch.argmax(energy))].contiguous()
 
         shifts = torch.arange(self.num_shifts, device=x.device)
-        (qf2, freqbins), _ = _fast_xcorr_impl(
+        (qf2, freqbins), self.xcorr_path = _fast_xcorr_impl(
             template, x, shifts, n=self.template_len,
             batch_size=min(128, self.num_shifts), step=1)
         ipeak = int(torch.argmax(qf2))
@@ -110,15 +114,13 @@ class WidebandReceiver(nn.Module):
 
     def run(self, template_ri: torch.Tensor, rx_ri: torch.Tensor) -> dict:
         """One step plus a structured run summary: the JAX receiver's keys,
-        plus the WOLA route and the Hopper kernels' launches in this step."""
+        plus the WOLA route and the Hopper kernels' launches in this step.
+        Both routes are those the step dispatched."""
         launches0 = (wola_fused.launches, caf_peak.launches)
         qf2, ipeak, fbin, energy, syms = self.step(template_ri, rx_ri)
         energy = energy.cpu().numpy()
-        dev = rx_ri.device
-        path, reason = select_xcorr_path(self.template_len, torch.complex64,
-                                         1, dev)
-        wpath, wreason = select_wola_path(self.num_channels, self.dec, dev,
-                                          self.f_tap.shape[-1])
+        path, reason = self.xcorr_path
+        wpath, wreason = self.wola_path
         qf2 = float(qf2)
         return {
             "qf2_peak": qf2,

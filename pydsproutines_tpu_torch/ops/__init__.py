@@ -1,3 +1,6 @@
+from pydsproutines_tpu_torch.ops.cancellation import cancel_signal_at_idx
+from pydsproutines_tpu_torch.ops.cyclostationary import (
+    PSKOrderDetector, estimate_baud, estimate_offset_via_cm)
 from pydsproutines_tpu_torch.ops.demod import (
     PSK_BITMAPS, PSK_CONSTS, BatchDemodResult, BurstyDemodulatorCP2FSK,
     DemodulatorBatchPSK, DemodulatorBatchQPSK, SimpleDemodulator8PSK,
@@ -32,7 +35,16 @@ from pydsproutines_tpu_torch.ops.groupxcorr import (GroupXcorr,
                                                     select_group_caf_path)
 from pydsproutines_tpu_torch.ops.hopper.sliding import (
     select_sliding_path, sliding_multiply_normalised)
+from pydsproutines_tpu_torch.ops.masked import (
+    multiply_masked_rows_gathered, multiply_only_masked_rows,
+    multiply_rows_based_on_mask)
+from pydsproutines_tpu_torch.ops.matrixprofile import (MatrixProfile,
+                                                       matrix_profile)
+from pydsproutines_tpu_torch.ops.minmax import multichannel_minmax_scale
 from pydsproutines_tpu_torch.ops.multicorr import MultiPreambleCorrelator
+from pydsproutines_tpu_torch.ops.music import (CAPON, ESPRIT, MUSIC,
+                                               music_alg, music_xcorr,
+                                               music_xcorr_device)
 from pydsproutines_tpu_torch.ops.spectral import (CZT, IntegerMultipleFFT,
                                                   burst_fft, czt, dft,
                                                   tone_spectrum)
@@ -79,4 +91,10 @@ __all__ = ["get_eye_opening", "lock_phase", "map_syms", "PSK_CONSTS",
            "expected_eff_snr", "sigma_dto", "sigma_dfo",
            "theoretical_multi_peak", "argmax2d",
            "compute_fast_xcorr_complexity",
-           "compute_group_xcorr_czt_complexity"]
+           "compute_group_xcorr_czt_complexity",
+           "MUSIC", "CAPON", "ESPRIT", "music_alg", "music_xcorr",
+           "music_xcorr_device", "PSKOrderDetector", "estimate_baud",
+           "estimate_offset_via_cm", "MatrixProfile", "matrix_profile",
+           "cancel_signal_at_idx", "multiply_only_masked_rows",
+           "multiply_rows_based_on_mask", "multiply_masked_rows_gathered",
+           "multichannel_minmax_scale"]

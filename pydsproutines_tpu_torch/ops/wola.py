@@ -52,22 +52,32 @@ def wola(f_tap: torch.Tensor, x: torch.Tensor, dec: int, n: int | None = None,
     N == 2*Dec; at N == Dec only their real part is (the JAX package's
     ``jnp.real(f_tap)``), before the kernel or its twin.
     """
+    return _wola_impl(f_tap, x, dec, n, row_offset)[0]
+
+
+def _wola_impl(f_tap: torch.Tensor, x: torch.Tensor, dec: int,
+               n: int | None = None, row_offset: int = 0):
+    """The routed core of ``wola``; returns (what ``wola`` returns, the
+    (path, reason) of ``select_wola_path`` for this call). At N == Dec the
+    dispatch is ``wola_fused``'s: the kernel for a CUDA tensor, the twin
+    for a CPU one, as the router says."""
     if n is None:
         n = dec
     if n != dec and n != 2 * dec:
         raise ValueError("Only N == Dec or N == 2*Dec supported (as reference).")
     if f_tap.shape[-1] % n != 0:
         raise ValueError("Filter tap length must be an integer multiple of N.")
+    route = select_wola_path(n, dec, x.device, f_tap.shape[-1])
     if n == dec:
         if f_tap.is_complex():
             f_tap = f_tap.real.contiguous()
-        return wola_fused(f_tap, x, n)
+        return wola_fused(f_tap, x, n), route
     out = wola_plain(f_tap, x, dec, n)
     rows = out.shape[0]
     odd_row = (torch.arange(rows, device=x.device) + row_offset) % 2 == 1
     odd_chan = torch.arange(n, device=x.device) % 2 == 1
     flip = odd_row[:, None] & odd_chan[None, :]
-    return torch.where(flip, -out, out)
+    return torch.where(flip, -out, out), route
 
 
 class Channeliser(nn.Module):

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from pydsproutines_tpu_torch.utils.dtypes import to_tensor
+
 
 def resolve_device(device=None) -> torch.device:
     """``torch.device(device)``; ``cuda`` when ``device`` is None, which
@@ -28,3 +30,13 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def place(a, device=None) -> torch.Tensor:
+    """The input of a plain function as a tensor: a tensor stays on its own
+    device (or moves to ``device`` when one is given); an array-like (numpy,
+    a list) goes to ``resolve_device(device)``, the card unless the caller
+    names another device."""
+    if isinstance(a, torch.Tensor):
+        return a if device is None else a.to(resolve_device(device))
+    return to_tensor(a, resolve_device(device))

@@ -6,6 +6,7 @@ import contextlib
 import numpy as np
 import torch
 
+COMPLEX_DTYPE = torch.complex64
 FLOAT_DTYPE = torch.float32
 
 

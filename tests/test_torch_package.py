@@ -2,6 +2,8 @@
 routers pick the Hopper kernels for CUDA tensors, and a kernel wrapper never
 falls back to its plain twin for a tensor that is not on the CPU."""
 
+import ast
+import importlib
 import re
 import subprocess
 import sys
@@ -25,12 +27,56 @@ PKG = Path(pydsproutines_tpu_torch.__file__).parent
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, pydsproutines_tpu_torch; "
+    """Importing the port, its ``io`` and its ``viz`` (every viewer module)
+    loads neither JAX, the JAX package nor matplotlib."""
+    code = ("import sys, pydsproutines_tpu_torch, pydsproutines_tpu_torch.io, "
+            "pydsproutines_tpu_torch.viz, pydsproutines_tpu_torch.viz.plots, "
+            "pydsproutines_tpu_torch.viz.xcorr_viewer, "
+            "pydsproutines_tpu_torch.viz.configeditor, "
+            "pydsproutines_tpu_torch.viz.webviewer; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'matplotlib' not in sys.modules, 'matplotlib imported'; "
             "assert not any(m.startswith('pydsproutines_tpu.') or "
             "m == 'pydsproutines_tpu' for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=PKG.parent)
+
+
+def _jax_all(sub: str) -> list[str]:
+    """``__all__`` of the JAX package's ``sub/__init__.py``, read by ast
+    (importing it would load JAX)."""
+    tree = ast.parse((PKG.parent / "pydsproutines_tpu" / sub /
+                      "__init__.py").read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__"
+                        for t in node.targets)):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"no __all__ in pydsproutines_tpu/{sub}")
+
+
+PORTED = ["ops", "utils", "io", "viz", "models", "signal", "estimation"]
+# subpackages of the JAX package not ported yet: ``parallel`` (ROADMAP Queue 1
+# item 4); porting one takes it off this list
+TO_PORT = {"parallel"}
+
+
+@pytest.mark.parametrize("sub", PORTED)
+def test_port_exports_every_public_name(sub):
+    module = importlib.import_module(f"pydsproutines_tpu_torch.{sub}")
+    names = _jax_all(sub)
+    assert names
+    assert [n for n in names if not hasattr(module, n)] == []
+    assert set(names) <= set(module.__all__)
+
+
+def test_only_parallel_is_left_to_port():
+    """Every JAX subpackage the port lacks is on the ``TO_PORT`` list."""
+    subs = {p.name for p in (PKG.parent / "pydsproutines_tpu").iterdir()
+            if (p / "__init__.py").exists()}
+    missing = {s for s in subs if not (PKG / s / "__init__.py").exists()}
+    assert set(PORTED) <= subs - missing
+    assert missing <= TO_PORT
 
 
 def test_no_source_file_imports_jax():

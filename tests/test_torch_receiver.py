@@ -76,3 +76,36 @@ def test_from_numpy_params_rejects_wrong_taps():
         WidebandReceiver.from_numpy_params(
             {"f_tap": np.ones(100, np.float32), "num_channels": 16,
              "num_taps": 128}, device="cpu")
+
+
+def test_run_reports_the_routes_its_step_dispatched(monkeypatch):
+    """``xcorr_path`` and ``wola_path`` are the (path, reason) that the
+    step's cores dispatched, each router asked once a step, not asked again
+    by ``run``. The step is sent to the twins (each router spied on and
+    its reason tagged), and the summary must say so."""
+    import sys
+    wola = sys.modules["pydsproutines_tpu_torch.ops.wola"]
+    xcorr = sys.modules["pydsproutines_tpu_torch.ops.xcorr"]
+    asked = {"xcorr": 0, "wola": 0}
+
+    def spy(name, route):
+        def routed(*args, **kwargs):
+            path, reason = route(*args, **kwargs)
+            asked[name] += 1
+            return "plain", f"{reason} [{name} call {asked[name]}]"
+        return routed
+
+    monkeypatch.setattr(xcorr, "select_xcorr_path",
+                        spy("xcorr", xcorr.select_xcorr_path))
+    monkeypatch.setattr(wola, "select_wola_path",
+                        spy("wola", wola.select_wola_path))
+    cfg = CONFIGS[0]
+    rcv = WidebandReceiver(**cfg, device="cpu")
+    summary = rcv.run(*rcv.example_inputs(seed=3))
+    assert asked == {"xcorr": 1, "wola": 1}
+    assert summary["xcorr_path"] == summary["wola_path"] == "plain"
+    assert summary["xcorr_path_reason"].endswith("[xcorr call 1]")
+    assert summary["wola_path_reason"].endswith("[wola call 1]")
+    assert (rcv.xcorr_path, rcv.wola_path) == (
+        ("plain", summary["xcorr_path_reason"]),
+        ("plain", summary["wola_path_reason"]))
