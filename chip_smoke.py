@@ -95,7 +95,35 @@
    against float64 numpy), and the masked-row
    products at 1024 x 8192; each against the same call on the CPU, timed,
    with the device busy share and heaviest kernels of the path, MUSIC and
-   the matrix profile from the profiler (device events only).
+   the matrix profile from the profiler (device events only). Last, the
+   distribution layer (``pydsproutines_tpu_torch.parallel``), every launch
+   count at 0 before each part: (a) on the one NCCL rank that
+   ``make_mesh()`` starts on the card, ``sharded_wola`` on the receiver's
+   8,388,608-sample capture at 64 ch and 2048 taps (#1),
+   ``sharded_multichannel_wola`` on it as 4 x 2,097,152 (#1),
+   ``sharded_lfilter`` at 4,194,304 samples and 128 taps (#5),
+   ``sharded_fast_xcorr`` and ``sharded_caf_peak`` at n = 1,000,000 x 128
+   shifts (#2, "fused-hopper") and ``sharded_caf_peak`` over a sorted
+   list of 128 shifts (#4, "peak-kernel-hopper"), and
+   ``sharded_group_xcorr_czt`` / ``_peak`` at the group cell (#8), the
+   routes and launches checked (#1, #2, #4, #5, #8 launched, every other
+   kernel 0), each against the single-device call on the card (peaks
+   exact, arrays within PAR_TOL of max |ref|) and both timed (the
+   difference is the wrapper's cost at world 1); (b) 4 ranks of one gloo
+   group spawned on the one card (NCCL refuses two ranks on one device;
+   gloo carries halos and scalars through host memory), at SCALING.json's
+   sizes a process: the 8M capture through ``sharded_wola`` and
+   ``sharded_lfilter`` (2,097,152 samples a rank, a non-zero halo and row
+   offset), a 4096-sample cutout over 1024 shifts (256 a rank) through
+   ``sharded_fast_xcorr`` / ``sharded_caf_peak``, the group cell's 1024
+   shifts; each rank's block or peak against the single-device call on the
+   card, its launches and times ("4 ranks sharing one card", not a scaling
+   figure) and the exchanges' backend printed; (c) on the same ranks the
+   multi-host flow: a 4,194,304-sample int16 capture written to a file,
+   ``read_local_capture`` a block a rank, ``shard_local_blocks`` on the
+   card, ``sharded_lfilter``, and ``sharded_caf_peak`` over shifts made
+   global the same way (the planted shift 2600, bin 0, found on rank 2's
+   block and returned to every rank).
    Checks the routes, the launch counts, the planted channel, edges, shifts
    and bins, the receiver's answer and the detection chain's against the
    same calls on the CPU (plain twins), both big-window routes and the group
@@ -284,6 +312,21 @@ AN_MASK_ROWS, AN_MASK_LEN, AN_MASK_EVERY, AN_MASK_CAP = 1024, 8192, 8, 128
 # machines agree there to 1e-3
 AN_MINMAX_ATOL, AN_CANCEL_RTOL, AN_MASK_RTOL, AN_MU_NOTCH = 1e-6, 1e-5, \
     1e-6, 1e-3
+# the distribution layer (parallel/): (a) one NCCL rank at the main path's
+# widths, the channel-sharded WOLA over PAR_MC captures of the 8M capture;
+# (b) PAR_RANKS gloo ranks sharing the one card at SCALING.json's sizes a
+# process: the 8M capture (2,097,152 samples a rank) through WOLA and the
+# chain's FIR, a PAR_CUT-sample cutout over PAR_SHIFTS shifts (256 a rank)
+# planted at PAR_STAR, bin PAR_BIN, and the group cell's 1024 shifts (256 a
+# rank); (c) the multi-host flow: a PAR_CAP-sample int16 capture holding
+# the PAR_CUT-sample template at PAR_CAP_STAR, bin 0, read a block a rank,
+# and swept over PAR_SHIFTS shifts from PAR_CAP_S0 (both planted shifts lie
+# in rank 2's block). Sharded vs single-device on the card: the JAX tests'
+# 1e-4 (tests/test_parallel.py), here of max |ref|; peaks exact.
+PAR_RANKS, PAR_MC, PAR_TOL = 4, 4, 1e-4
+PAR_PEAK, PAR_LIST_BIN = (77, 12345), 54321   # (a): the main path's plants
+PAR_CUT, PAR_SHIFTS, PAR_STAR, PAR_BIN = 4096, 1024, 700, 5
+PAR_CAP, PAR_CAP_S0, PAR_CAP_STAR = 1 << 22, 2048, 2600
 
 
 def check(cond: bool, msg: str) -> None:
@@ -381,11 +424,18 @@ def plan_text(info: dict) -> str:
 
 def group_scene(rng, device):
     """(GroupXcorrCZT built with no device, so on the card; the same on
-    the CPU; rx on ``device``) at the bench's group-xcorr cell: a random
-    template's 8 groups planted at shift G_STAR on CZT bin G_BIN, in
-    noise."""
+    the CPU; rx on ``device``) of ``group_args``."""
     import torch
     from pydsproutines_tpu_torch.ops.groupxcorr import GroupXcorrCZT
+    args, rx = group_args(rng)
+    return (GroupXcorrCZT(*args), GroupXcorrCZT(*args, device="cpu"),
+            torch.from_numpy(rx).to(device))
+
+
+def group_args(rng):
+    """(GroupXcorrCZT's arguments, complex64 rx) at the bench's group-xcorr
+    cell: a random template's 8 groups planted at shift G_STAR on CZT bin
+    G_BIN, in noise."""
     starts = np.arange(G_GROUPS) * 4 * G_LEN
     span = int(starts[-1] + G_LEN)
     y = (rng.standard_normal(span) + 1j * rng.standard_normal(span))
@@ -398,8 +448,7 @@ def group_scene(rng, device):
                                             * np.arange(span) / G_FS)
     args = (y.astype(np.complex64), starts, np.full(G_GROUPS, G_LEN), f1, f2,
             bw, G_FS)
-    return (GroupXcorrCZT(*args), GroupXcorrCZT(*args, device="cpu"),
-            torch.from_numpy(rx.astype(np.complex64)).to(device))
+    return args, rx.astype(np.complex64)
 
 
 def planted_sweep(rng, n, num_shifts, s_star, f_star, device):
@@ -1602,6 +1651,347 @@ def analysis(dev, kernels) -> dict:
         "busy_share": prof["path"]["busy_share"], "phase_s": secs}
 
 
+def receiver_capture() -> np.ndarray:
+    """The receiver's 8,388,608-sample capture (``scene_burst``, seed 7),
+    complex64."""
+    return scene_burst(NCH, TAPS, N_RX, SHIFTS_RX, ROWS * NCH,
+                       7)[1].astype(np.complex64)
+
+
+def group_params(gx) -> dict:
+    """A GroupXcorrCZT plan's numpy constants: every rank builds an equal
+    plan from them with ``GroupXcorrCZT.from_numpy_params``."""
+    return {"ystack": gx.ystack, "starts": gx.starts, "lengths": gx.lengths,
+            "group_phases": gx.group_phases,
+            "ystack_norm_sq": gx.ystack_norm_sq, "tones": gx.plan.tones,
+            "f1": gx.plan.f1, "bin_width": gx.plan.bin_width,
+            "k": gx.plan.k, "fs": gx.plan.fs}
+
+
+def sweep_peak(qf2, bins, shifts) -> tuple:
+    """(QF^2, shift, bin) of a sweep's largest QF^2, the first on ties."""
+    import torch
+    i = int(torch.argmax(qf2))
+    return float(qf2[i]), int(shifts[i]), int(bins[i])
+
+
+def grid_peak(caf, shifts) -> tuple:
+    """(QF^2, shift, bin) of a (shifts, k) grid's largest entry."""
+    import torch
+    i, j = np.unravel_index(int(torch.argmax(caf)), caf.shape)
+    return float(caf[i, j]), int(shifts[i]), int(j)
+
+
+def par_ms(fn, dev):
+    """Median CUDA-event ms of ``fn()`` (3 calls after a warm-up) on the
+    card; None on the CPU, where nothing is measured."""
+    from pydsproutines_tpu_torch.utils.timing import median_ms
+    return median_ms(fn, reps=3) if dev.type == "cuda" else None
+
+
+def hold_sharded(name, got, ref, coord: int, size: int, planted) -> float:
+    """A sharded call's result on this rank against the single-device
+    call's: each DTensor's local block against its slice of the whole
+    (floats within PAR_TOL of max |ref|, integers equal), a peak triple
+    equal on every field and at the ``planted`` (shift, bin). Returns the
+    largest |d|."""
+    import torch
+    if not isinstance(got[0] if isinstance(got, tuple) else got,
+                      torch.Tensor):
+        check(tuple(got) == tuple(ref), f"{name}: peak {got} vs the "
+                                        f"single-device call's {ref}")
+        check(planted is None or tuple(got[1:]) == planted,
+              f"{name}: peak at {got[1:]}, planted at {planted}")
+        return 0.0
+    err = 0.0
+    for g, r in zip(*((v if isinstance(v, tuple) else (v,))
+                      for v in (got, ref))):
+        g, n = g.to_local(), r.shape[0] // size
+        r = r[coord * n: (coord + 1) * n]
+        check(g.shape == r.shape, f"{name}: block {tuple(g.shape)} vs "
+                                  f"{tuple(r.shape)}")
+        if r.is_floating_point() or r.is_complex():
+            d = float((g - r).abs().max())
+            err = max(err, d)
+            check(bool(torch.isfinite(g).all())
+                  and d <= PAR_TOL * float(r.abs().max()),
+                  f"{name}: max|d| {d:.3e} against the single-device call")
+        else:
+            check(torch.equal(g, r), f"{name}: bins differ from the "
+                                     f"single-device call's")
+    return err
+
+
+def par_run(calls: dict, kernels, mesh, dev) -> dict:
+    """Run every sharded call once with each kernel's launch count at 0
+    before them and read after; hold each against its single-device call
+    (``hold_sharded``); time both. ``calls``: name -> (sharded call,
+    single-device call, the function whose ``route`` the call sets or None,
+    the planted (shift, bin) or None)."""
+    import torch
+    sub = mesh["dsp"]
+    for kernel in kernels:
+        kernel.launches = 0
+    outs, routes = {}, {}
+    for name, (fn, _, holder, _) in calls.items():
+        outs[name] = fn()
+        if holder is not None:
+            routes[name] = list(holder.route)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    errs = {name: hold_sharded(name, outs[name], single(),
+                               sub.get_local_rank(), sub.size(), planted)
+            for name, (_, single, _, planted) in calls.items()}
+    return {"routes": routes, "launches": launches, "max_abs_err": errs,
+            "ms": {n: par_ms(c[0], dev) for n, c in calls.items()},
+            "single_ms": {n: par_ms(c[1], dev) for n, c in calls.items()}}
+
+
+def parallel_one_rank(dev, kernels) -> dict:
+    """(a) The distribution layer on the one rank of the group that
+    ``make_mesh()`` starts (NCCL on the card), at the main path's widths:
+    ``sharded_wola`` on the receiver's 8M capture (#1),
+    ``sharded_multichannel_wola`` on it as 4 captures (#1),
+    ``sharded_lfilter`` on 4M samples with 128 taps (#5),
+    ``sharded_fast_xcorr`` / ``sharded_caf_peak`` at n = 1M x 128 (#2) and
+    over a listed sweep (#4), the group CAF at the bench cell (#8); each
+    against the single-device call (``par_run``)."""
+    import torch
+    import torch.distributed as dist
+    from scipy import signal as sps
+    from pydsproutines_tpu_torch import parallel as par
+    from pydsproutines_tpu_torch.ops import fast_xcorr, lfilter_fir, wola
+    from pydsproutines_tpu_torch.ops.groupxcorr import GroupXcorrCZT
+    from pydsproutines_tpu_torch.parallel._exchange import transport
+
+    rng = np.random.default_rng(12)
+    x8 = torch.from_numpy(receiver_capture()).to(dev)
+    xm, x4 = x8.reshape(PAR_MC, -1), x8[:N_FIR]
+    h = torch.from_numpy(sps.firwin(TAPS, 1.0 / NCH).astype(np.float32)
+                         ).to(dev)
+    fir = torch.from_numpy(sps.firwin(FIR_TAPS, 0.25).astype(np.float32)
+                           ).to(dev)
+    cut, rx = planted_sweep(rng, N_BIG, SHIFTS_BIG, *PAR_PEAK, dev)
+    sweep = np.arange(SHIFTS_BIG)
+    listed = np.sort(rng.choice(SPAN_4, SHIFTS_4, replace=False))
+    cut4, rx4 = listed_sweep(rng, N_4, listed, PAR_PEAK[0], PAR_LIST_BIN,
+                             dev)
+    args, rx_g = group_args(rng)
+    plan = GroupXcorrCZT.from_numpy_params(
+        group_params(GroupXcorrCZT(*args, device="cpu")), device=dev)
+    rx_g, g_sweep = torch.from_numpy(rx_g).to(dev), np.arange(G_SHIFTS)
+    mesh = par.make_mesh(device_type=dev.type)
+    calls = {
+        "sharded_wola": (
+            lambda: par.sharded_wola(h, x8, NCH, NCH, mesh),
+            lambda: wola(h, x8, NCH, NCH), par.sharded_wola, None),
+        "sharded_multichannel_wola": (
+            lambda: par.sharded_multichannel_wola(h, xm, NCH, NCH, mesh),
+            lambda: torch.stack([wola(h, r, NCH, NCH) for r in xm]),
+            par.sharded_multichannel_wola, None),
+        "sharded_lfilter": (lambda: par.sharded_lfilter(fir, x4, mesh),
+                            lambda: lfilter_fir(fir, x4), None, None),
+        "sharded_fast_xcorr": (
+            lambda: par.sharded_fast_xcorr(cut, rx, sweep, mesh),
+            lambda: fast_xcorr(cut, rx, True, shifts=sweep),
+            par.sharded_fast_xcorr, None),
+        "sharded_caf_peak": (
+            lambda: par.sharded_caf_peak(cut, rx, sweep, mesh),
+            lambda: sweep_peak(*fast_xcorr(cut, rx, True, shifts=sweep),
+                               sweep), par.sharded_caf_peak, PAR_PEAK),
+        "sharded_caf_peak (listed)": (
+            lambda: par.sharded_caf_peak(cut4, rx4, listed, mesh),
+            lambda: sweep_peak(*fast_xcorr(cut4, rx4, True, shifts=listed),
+                               listed), par.sharded_caf_peak,
+            (int(listed[PAR_PEAK[0]]), PAR_LIST_BIN)),
+        "sharded_group_xcorr_czt": (
+            lambda: par.sharded_group_xcorr_czt(plan, rx_g, g_sweep,
+                                                mesh)[0],
+            lambda: plan.xcorr(rx_g, g_sweep)[0], None, None),
+        "sharded_group_xcorr_peak": (
+            lambda: par.sharded_group_xcorr_peak(plan, rx_g, g_sweep, mesh),
+            lambda: grid_peak(plan.xcorr(rx_g, g_sweep)[0], g_sweep), None,
+            (G_STAR, G_BIN)),
+    }
+    res = par_run(calls, kernels, mesh, dev)
+    on_card = dev.type == "cuda"
+    want = {"sharded_wola": "fused-hopper",
+            "sharded_multichannel_wola": "fused-hopper",
+            "sharded_fast_xcorr": "fused-hopper",
+            "sharded_caf_peak": "fused-hopper",
+            "sharded_caf_peak (listed)": "peak-kernel-hopper"}
+    got = {n: r[0] for n, r in res["routes"].items()}
+    check(got == (want if on_card else dict.fromkeys(want, "plain")),
+          f"sharded routes {got}")
+    ran = ("wola_fused", "caf_peak", "window_columns", "stage2_peak",
+           "upfirdn_planes", "group_caf")
+    launched = res["launches"]
+    check(not on_card or (all(launched[k] > 0 for k in ran) and all(
+        v == 0 for k, v in launched.items() if k not in ran)),
+        f"launches of the sharded calls {launched}")
+    res.update(backend=str(dist.get_backend()),
+               world=dist.get_world_size(),
+               transport=transport(mesh["dsp"].get_group(), dev),
+               overhead_ms={n: (None if res["ms"][n] is None else
+                                res["ms"][n] - res["single_ms"][n])
+                            for n in calls})
+    dist.destroy_process_group()
+    return res
+
+
+def parallel_ranks(dev) -> list[dict]:
+    """(b) and (c) on PAR_RANKS ranks of one gloo group spawned on the one
+    card (NCCL refuses two ranks on one device), each rank on ``dev``; the
+    inputs go to the ranks by file (``parallel_rank``). Returns each rank's
+    results."""
+    import pickle
+    import tempfile
+    from pathlib import Path
+    from pydsproutines_tpu_torch.ops.groupxcorr import GroupXcorrCZT
+    from pydsproutines_tpu_torch.parallel import dryrun
+
+    rng = np.random.default_rng(13)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        np.save(out / "x8.npy", receiver_capture())
+        cut, rx = planted_sweep(rng, PAR_CUT, PAR_SHIFTS, PAR_STAR, PAR_BIN,
+                                "cpu")
+        np.savez(out / "caf.npz", cut=cut.numpy(), rx=rx.numpy())
+        args, rx_g = group_args(rng)
+        (out / "group.pkl").write_bytes(pickle.dumps({
+            "params": group_params(GroupXcorrCZT(*args, device="cpu")),
+            "rx": rx_g}))
+        # (c): a QPSK template planted at PAR_CAP_STAR in noise, as int16
+        syms = np.exp(0.5j * np.pi * rng.integers(0, 4, PAR_CUT))
+        cap = 0.3 * (rng.standard_normal(PAR_CAP)
+                     + 1j * rng.standard_normal(PAR_CAP))
+        cap[PAR_CAP_STAR: PAR_CAP_STAR + PAR_CUT] += syms
+        raw, scale = int16_capture(cap, 1, AN_INT16_PEAK)
+        raw.tofile(out / "capture.bin")
+        np.save(out / "template.npy", (syms * scale).astype(np.complex64))
+        (out / "spec.json").write_text(json.dumps({
+            "device": dev.type, "nch": NCH, "taps": TAPS,
+            "fir_taps": FIR_TAPS, "shifts": PAR_SHIFTS, "star": PAR_STAR,
+            "bin": PAR_BIN, "g_shifts": G_SHIFTS, "g_star": G_STAR,
+            "g_bin": G_BIN, "cap": PAR_CAP, "cap_s0": PAR_CAP_S0,
+            "cap_star": PAR_CAP_STAR}))
+        dryrun.run_ranks(parallel_rank, PAR_RANKS, (tmp,), "gloo", 600.0)
+        return [json.loads((out / f"rank{r}.json").read_text())
+                for r in range(PAR_RANKS)]
+
+
+def parallel_rank(rank: int, world: int, outdir: str) -> None:
+    """One rank of (b) and (c), all ranks on the one card (device 0).
+    (b): ``sharded_wola`` (#1) and ``sharded_lfilter`` (#5) over the 8M
+    capture, 2,097,152 samples a rank; ``sharded_fast_xcorr`` /
+    ``sharded_caf_peak`` (#2) with a PAR_CUT-sample cutout over PAR_SHIFTS
+    shifts; the group CAF (#8) over the cell's 1024 shifts; each rank's
+    block or peak against the single-device call on the card
+    (``par_run``). (c): ``read_local_capture`` of this rank's block of the
+    int16 capture, ``shard_local_blocks`` on the card, ``sharded_lfilter``
+    and ``sharded_caf_peak`` over shifts made global the same way, against
+    the single-device calls on the whole capture and the planted peak.
+    Writes ``outdir/rank{rank}.json``."""
+    import pickle
+    from pathlib import Path
+    import torch
+    from scipy import signal as sps
+    from pydsproutines_tpu_torch import parallel as par
+    from pydsproutines_tpu_torch.io.binfiles import simple_bin_read
+    from pydsproutines_tpu_torch.ops import fast_xcorr, lfilter_fir, wola
+    from pydsproutines_tpu_torch.ops.groupxcorr import GroupXcorrCZT
+    from pydsproutines_tpu_torch.ops.hopper import (fft_peak, fused_caf3,
+                                                    fused_xcorr, group_caf,
+                                                    medfilt, sliding,
+                                                    upfirdn, wola_fused)
+    from pydsproutines_tpu_torch.parallel._exchange import transport
+    from pydsproutines_tpu_torch.parallel.multihost import (
+        read_local_capture, shard_local_blocks)
+
+    out = Path(outdir)
+    sp = json.loads((out / "spec.json").read_text())
+    dev = torch.device(sp["device"], 0 if sp["device"] == "cuda" else None)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    kernels = (wola_fused.wola_fused, fused_xcorr.caf_peak,
+               fused_caf3.caf3_peak, fft_peak.window_columns,
+               fft_peak.stage2_peak, upfirdn.upfirdn_planes,
+               medfilt.medfilt_kernel, group_caf.group_caf,
+               sliding.sliding_multiply_normalised)
+    mesh = par.make_mesh((world,), ("dsp",), dev.type)
+    nch = sp["nch"]
+    x8 = torch.from_numpy(np.load(out / "x8.npy")).to(dev)
+    h = torch.from_numpy(sps.firwin(sp["taps"], 1.0 / nch).astype(
+        np.float32)).to(dev)
+    fir = torch.from_numpy(sps.firwin(sp["fir_taps"], 0.25).astype(
+        np.float32)).to(dev)
+    with np.load(out / "caf.npz") as f:
+        cut, rx = (torch.from_numpy(f[k]).to(dev) for k in ("cut", "rx"))
+    g = pickle.loads((out / "group.pkl").read_bytes())
+    plan = GroupXcorrCZT.from_numpy_params(g["params"], device=dev)
+    rx_g = torch.from_numpy(g["rx"]).to(dev)
+    sweep, g_sweep = np.arange(sp["shifts"]), np.arange(sp["g_shifts"])
+    calls = {
+        "sharded_wola": (lambda: par.sharded_wola(h, x8, nch, nch, mesh),
+                         lambda: wola(h, x8, nch, nch), par.sharded_wola,
+                         None),
+        "sharded_lfilter": (lambda: par.sharded_lfilter(fir, x8, mesh),
+                            lambda: lfilter_fir(fir, x8), None, None),
+        "sharded_fast_xcorr": (
+            lambda: par.sharded_fast_xcorr(cut, rx, sweep, mesh),
+            lambda: fast_xcorr(cut, rx, True, shifts=sweep),
+            par.sharded_fast_xcorr, None),
+        "sharded_caf_peak": (
+            lambda: par.sharded_caf_peak(cut, rx, sweep, mesh),
+            lambda: sweep_peak(*fast_xcorr(cut, rx, True, shifts=sweep),
+                               sweep), par.sharded_caf_peak,
+            (sp["star"], sp["bin"])),
+        "sharded_group_xcorr_czt": (
+            lambda: par.sharded_group_xcorr_czt(plan, rx_g, g_sweep,
+                                                mesh)[0],
+            lambda: plan.xcorr(rx_g, g_sweep)[0], None, None),
+        "sharded_group_xcorr_peak": (
+            lambda: par.sharded_group_xcorr_peak(plan, rx_g, g_sweep, mesh),
+            lambda: grid_peak(plan.xcorr(rx_g, g_sweep)[0], g_sweep), None,
+            (sp["g_star"], sp["g_bin"])),
+    }
+    res = par_run(calls, kernels, mesh, dev)
+
+    # (c) the multi-host flow: this rank's block read from the file
+    path = out / "capture.bin"
+    tmpl = torch.from_numpy(np.load(out / "template.npy")).to(dev)
+    per = sp["shifts"] // world
+    s0 = sp["cap_s0"] + rank * per
+    for kernel in kernels:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    local = read_local_capture(path, sp["cap"], world, rank)
+    y = par.sharded_lfilter(fir, shard_local_blocks(local, mesh, "dsp"),
+                            mesh)
+    whole = torch.from_numpy(simple_bin_read(path)).to(dev)
+    peak = par.sharded_caf_peak(
+        tmpl, whole, shard_local_blocks(np.arange(s0, s0 + per), mesh,
+                                        "dsp"), mesh)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    flow_ms = 1e3 * (time.perf_counter() - t0)
+    flow_launches = {k.__name__: k.launches for k in kernels}
+    cap_sweep = sp["cap_s0"] + np.arange(sp["shifts"])
+    ref = sweep_peak(*fast_xcorr(tmpl, whole, True, shifts=cap_sweep),
+                     cap_sweep)
+    err = hold_sharded("capture sharded_lfilter", y,
+                       lfilter_fir(fir, whole), rank, world, None)
+    hold_sharded("capture sharded_caf_peak", peak, ref, rank, world,
+                 (sp["cap_star"], 0))
+    res["capture"] = {"peak": list(peak), "max_abs_err": err,
+                      "route": list(par.sharded_caf_peak.route),
+                      "launches": flow_launches, "ms": flow_ms}
+    res.update(rank=rank, transport=transport(mesh["dsp"].get_group(), dev),
+               backend=str(torch.distributed.get_backend()))
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2260,6 +2650,39 @@ def main() -> int:
           f"{ana['mp_err']:.3e} {tag}")
     print("analysis:", json.dumps(ana))
 
+    # this slice's path: the distribution layer, counts at 0 before each part
+    par_one = parallel_one_rank(dev, every)
+    for name in par_one["ms"]:
+        print(f"parallel (a) {name}, 1 {par_one['backend']} rank: "
+              f"{par_one['ms'][name]:.4f} ms, single-device "
+              f"{par_one['single_ms'][name]:.4f} ms (the wrapper "
+              f"{par_one['overhead_ms'][name]:+.4f} ms), max|d| "
+              f"{par_one['max_abs_err'][name]:.3e}, route "
+              f"{par_one['routes'].get(name, ['-'])[0]} {tag}")
+    print(f"parallel (a) launches {par_one['launches']}; exchanges "
+          f"{par_one['transport']} (world 1: no halo crosses a rank)")
+    par_four = parallel_ranks(dev)
+    for r in par_four:
+        check(all(r["launches"][k] > 0 for k in (
+            "wola_fused", "upfirdn_planes", "caf_peak", "group_caf"))
+            and r["capture"]["launches"]["upfirdn_planes"] > 0
+            and r["capture"]["launches"]["caf_peak"] > 0,
+            f"rank {r['rank']} skipped a kernel: {r['launches']}, "
+            f"{r['capture']['launches']}")
+        check(r["capture"]["peak"] == par_four[0]["capture"]["peak"],
+              "the ranks' capture peaks differ")
+        print(f"parallel (b) rank {r['rank']} of {PAR_RANKS} ranks sharing "
+              f"one card ({r['backend']}, exchanges {r['transport']}): "
+              + ", ".join(f"{n} {t:.4f} ms" for n, t in r["ms"].items())
+              + f"; launches {r['launches']}; max|d| "
+              f"{max(r['max_abs_err'].values()):.3e} {tag}")
+        print(f"parallel (c) rank {r['rank']}: read_local_capture -> "
+              f"shard_local_blocks -> sharded_lfilter -> sharded_caf_peak "
+              f"{r['capture']['ms']:.2f} ms (host clock, 4 ranks sharing "
+              f"one card), peak {r['capture']['peak']}, launches "
+              f"{r['capture']['launches']} {tag}")
+    parallel = {"card": card, "one_rank": par_one, "four_ranks": par_four}
+
     # 4) whole-step time -------------------------------------------------------
     step_ms = median_ms(lambda: rcv.step(tri, xri), reps=5)
     print(f"receiver step, {ROWS * NCH} samples: {step_ms:.4f} ms "
@@ -2401,7 +2824,8 @@ def main() -> int:
             "crb_host_ms", "propagate_exact_ms")},
         "analysis": {**ana["ms"], "busy_share": ana["busy_share"],
                      "mp_gpairs_per_s": ana["mp_gpairs_per_s"],
-                     "launches": ana["launches"]}, "card": card}))
+                     "launches": ana["launches"]}, "parallel": parallel,
+        "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,13 +27,16 @@ PKG = Path(pydsproutines_tpu_torch.__file__).parent
 
 
 def test_import_leaves_jax_out():
-    """Importing the port, its ``io`` and its ``viz`` (every viewer module)
-    loads neither JAX, the JAX package nor matplotlib."""
+    """Importing the port, its ``io``, its ``viz`` (every viewer module)
+    and its ``parallel`` (the dry runs and the walkthrough too) loads
+    neither JAX, the JAX package nor matplotlib."""
     code = ("import sys, pydsproutines_tpu_torch, pydsproutines_tpu_torch.io, "
             "pydsproutines_tpu_torch.viz, pydsproutines_tpu_torch.viz.plots, "
             "pydsproutines_tpu_torch.viz.xcorr_viewer, "
             "pydsproutines_tpu_torch.viz.configeditor, "
-            "pydsproutines_tpu_torch.viz.webviewer; "
+            "pydsproutines_tpu_torch.viz.webviewer, "
+            "pydsproutines_tpu_torch.parallel.dryrun, "
+            "pydsproutines_tpu_torch.parallel.multihost_pipeline; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'matplotlib' not in sys.modules, 'matplotlib imported'; "
             "assert not any(m.startswith('pydsproutines_tpu.') or "
@@ -55,10 +58,11 @@ def _jax_all(sub: str) -> list[str]:
     raise AssertionError(f"no __all__ in pydsproutines_tpu/{sub}")
 
 
-PORTED = ["ops", "utils", "io", "viz", "models", "signal", "estimation"]
-# subpackages of the JAX package not ported yet: ``parallel`` (ROADMAP Queue 1
-# item 4); porting one takes it off this list
-TO_PORT = {"parallel"}
+PORTED = ["ops", "utils", "io", "viz", "models", "signal", "estimation",
+          "parallel"]
+# subpackages of the JAX package not ported yet (none is left); porting one
+# takes it off this list
+TO_PORT = set()
 
 
 @pytest.mark.parametrize("sub", PORTED)
