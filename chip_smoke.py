@@ -123,7 +123,18 @@
    ``read_local_capture`` a block a rank, ``shard_local_blocks`` on the
    card, ``sharded_lfilter``, and ``sharded_caf_peak`` over shifts made
    global the same way (the planted shift 2600, bin 0, found on rank 2's
-   block and returned to every rank).
+   block and returned to every rank). Last, the transform phase
+   (``transform``), every launch count at 0 before its path:
+   ``wola_planes_flat`` and ``wola_planes`` at the JAX bench's
+   ``wola_64ch_8M`` (8,388,608 float32 samples a plane, 64 ch, 2048 taps)
+   and at N = 128, 256 (the plane-I/O instance of #1, 2 launches a shape,
+   first held bit-equal to the complex instance on the same samples),
+   ``fft`` / ``ifft`` / ``FourStepFFT.__call__`` / ``call_permuted`` at 16
+   x 2^20 complex64 against complex128 CPU FFTs, ``call_peak`` at 16 x
+   2^20 ([1024, 1024]) and 1 x 10^7 ([200, 200, 250]) and
+   ``call_peak_planes`` at 1 x 10^7 (#4 once a call; bins equal to the
+   complex128 argmax and the planted tones), timed beside the interleave
+   -> kernel -> split route and ``torch.fft.fft -> |.|^2 -> max``.
    Checks the routes, the launch counts, the planted channel, edges, shifts
    and bins, the receiver's answer and the detection chain's against the
    same calls on the CPU (plain twins), both big-window routes and the group
@@ -327,6 +338,27 @@ PAR_RANKS, PAR_MC, PAR_TOL = 4, 4, 1e-4
 PAR_PEAK, PAR_LIST_BIN = (77, 12345), 54321   # (a): the main path's plants
 PAR_CUT, PAR_SHIFTS, PAR_STAR, PAR_BIN = 4096, 1024, 700, 5
 PAR_CAP, PAR_CAP_S0, PAR_CAP_STAR = 1 << 22, 2048, 2600
+# the transform phase: WOLA's plane entry points at the bench cell
+# wola_64ch_8M (bench.py:269-306: 8,388,608 samples, 64 ch, Dec 64, 2048
+# taps) and at the #1b shapes (the same samples); the transform API at
+# benchmarks/benchmark_fft.py's 16 x 2^20 complex64; call_peak at 16 x 2^20
+# (plan [1024, 1024]) and at 1 x 10^7 ([200, 200, 250],
+# benchmarks/exp_10m_breakdown.py), call_peak_planes at 1 x 10^7
+# (benchmarks/exp_10m_prod.py); one tone a row (TF_BIN0 + r * TF_BIN_STEP,
+# and TF_BIN10 at 10^7, past 2^23) in unit complex noise, so no two bins
+# tie. Gates: the plane instance equal to the complex instance (max|d| 0)
+# and within WOLA_RTOL of its plain version; fft / ifft within TF_RTOL *
+# max|X| of a complex128 CPU FFT, ifft(fft(x)) within TF_RTOL * max|x| of
+# x (f32 FFTs of 2^20 points: ~1e-7 relative per pass); call_peak's bins
+# equal to the complex128 argmax and its peaks within CAF_RTOL of its max
+# |X|^2; call_peak against its twin (einsum leading stages, torch.fft last
+# stage) within CAF_RTOL, kernel #4 on the same stage-2 input within
+# CAF_RTOL of its twin.
+TF_WOLA = ((NCH, TAPS, ROWS),) + WOLA_DIRECT
+TF_FFT = (16, 1 << 20)
+TF_PEAK = ((16, 1 << 20), (1, 10_000_000))
+TF_BIN0, TF_BIN_STEP, TF_BIN10 = 12345, 65537, 9_876_543
+TF_RTOL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1992,6 +2024,268 @@ def parallel_rank(rank: int, world: int, outdir: str) -> None:
     (out / f"rank{rank}.json").write_text(json.dumps(res))
 
 
+def transform_scenes(wola_shapes=TF_WOLA, fft_shape=TF_FFT,
+                     peaks=TF_PEAK, seed: int = 17) -> dict:
+    """The transform phase's inputs as numpy arrays, made from ``seed``:
+    "re", "im" float32 planes of the largest WOLA shape's samples (the
+    smaller shapes take prefixes), their taps by (N, taps); "x" the
+    (rows, n) complex64 rows of each peak shape (the FFT shape's rows are
+    the first peak shape's), one tone a row at "bins"."""
+    from scipy import signal as sps
+    rng = np.random.default_rng(seed)
+    samples = max(n * rows for n, _, rows in wola_shapes)
+    re, im = (rng.standard_normal(samples, dtype=np.float32)
+              for _ in range(2))
+    taps = {(n, t): sps.firwin(t, 1.0 / n).astype(np.float32)
+            for n, t, _ in wola_shapes}
+    rows_of = {}
+    for b, n in peaks:
+        x = np.empty((b, n), np.complex64)
+        x.real = rng.standard_normal((b, n), dtype=np.float32)
+        x.imag = rng.standard_normal((b, n), dtype=np.float32)
+        bins = ([TF_BIN10 % n] if b == 1 else
+                [(TF_BIN0 + r * TF_BIN_STEP) % n for r in range(b)])
+        t = np.arange(n)
+        for r, k in enumerate(bins):
+            x[r] += np.exp(2j * np.pi * ((k * t) % n) / n).astype(
+                np.complex64)
+        rows_of[(b, n)] = (x, bins)
+    check(rows_of[peaks[0]][0].shape == fft_shape,
+          "the FFT shape is the first peak shape")
+    return {"re": re, "im": im, "taps": taps, "rows": rows_of}
+
+
+def row_flop(j: int) -> float:
+    """Kernel #4's own f32 operations a row of J points (its row plan:
+    the twiddle on load, the FFT, |.|^2 and the row peak)."""
+    from pydsproutines_tpu_torch.ops.fft import plan_flop, row_plan
+    return plan_flop(row_plan(j))
+
+
+def call_peak_bound(b: int, factors) -> dict:
+    """``FourStepFFT.call_peak`` over b rows of prod(factors) points: its
+    own count (each leading stage's FFTs at 5 f log2 f a line, their
+    twiddles, kernel #4's row plan) or one FFT and |.|^2 a row; the rows
+    read once, a float32 peak and an int64 bin written."""
+    n, j = math.prod(factors), factors[-1]
+    lead = (sum(n // f * fft_flop(f) for f in factors[:-1])
+            + 6.0 * n * (len(factors) - 2))
+    return bound(b * (lead + n // j * row_flop(j)),
+                 b * (fft_flop(n) + 3.0 * n), 8.0 * b * n + 12.0 * b)
+
+
+def transform(dev, kernels, wola_shapes=TF_WOLA, fft_shape=TF_FFT,
+              peaks=TF_PEAK, reps: int = 3) -> dict:
+    """The transform phase. Kernel checks (launches not counted): the
+    plane-I/O instance of #1 (``wola_fused_planes``) against the complex
+    instance on the same samples (equal) and against its plain version, at
+    each WOLA shape; kernel #4 on ``call_peak``'s stage-2 input against its
+    twin at each peak shape. Then the path through the public entry points,
+    every count at 0 just before it and read just after:
+    ``wola_planes_flat`` and ``wola_planes`` (its routed core
+    ``_wola_planes_impl``) at each WOLA shape, ``fft``, ``ifft``, a plan's
+    ``__call__`` and ``call_permuted`` at ``fft_shape``, ``call_peak`` at
+    each peak shape and ``call_peak_planes`` at the last; launches as the
+    code predicts (the plane instance twice a shape, #4 once a peak call,
+    every other kernel 0; all 0 on the CPU, where the twins run), routes
+    the kernel's. Last the gates against complex128 CPU FFTs and, on the
+    card, CUDA-event medians of ``reps`` after a warm-up."""
+    import torch
+    from pydsproutines_tpu_torch.ops.fft import fft, get_fft_plan, ifft
+    from pydsproutines_tpu_torch.ops.hopper.fft_peak import (
+        leading_stages_plain, stage2_peak, stage2_peak_plain)
+    from pydsproutines_tpu_torch.ops.hopper.wola_fused import (
+        wola_fused, wola_fused_planes, wola_plain, wola_planes_plain)
+    from pydsproutines_tpu_torch.ops.wola import (_wola_planes_impl,
+                                                  wola_planes_flat)
+    from pydsproutines_tpu_torch.utils.timing import median_ms
+    on_card = dev.type == "cuda"
+    sc = transform_scenes(wola_shapes, fft_shape, peaks)
+    re_all = torch.from_numpy(sc["re"]).to(dev)
+    im_all = torch.from_numpy(sc["im"]).to(dev)
+    planes = {}
+    for n, t, rows in wola_shapes:
+        h = torch.from_numpy(sc["taps"][(n, t)]).to(dev)
+        planes[(n, t, rows)] = (h, re_all[: rows * n], im_all[: rows * n])
+    xs = {k: (torch.from_numpy(x).to(dev), bins)
+          for k, (x, bins) in sc["rows"].items()}
+    plans = {k: get_fft_plan(k[1]) for k in peaks}
+    out = {"wola": [], "peaks": [], "card": on_card}
+
+    # kernel checks, counts not read ---------------------------------------
+    for (n, t, rows), (h, re, im) in planes.items():
+        pr, pi = wola_fused_planes(h, re, im, n)
+        xc = torch.complex(re, im)
+        c = wola_fused(h, xc, n)
+        ref = wola_plain(h, xc, n, n)
+        got = torch.complex(pr, pi)
+        check(pr.shape == (rows, n) and bool(torch.isfinite(got).all()),
+              f"WOLA planes {rows}x{n}: shape or finiteness")
+        check(torch.equal(pr, c.real) and torch.equal(pi, c.imag),
+              f"WOLA planes {rows}x{n}: the plane instance differs from the "
+              f"complex instance by {float((got - c).abs().max()):.3e}")
+        err = rel_err(got, ref)
+        check(err < WOLA_RTOL, f"WOLA planes {rows}x{n} vs plain: {err:.3e}")
+        rec = {"shape": f"{rows}x{n} ch, {t} taps", "rows": rows, "n": n,
+               "taps": t, "rel_err": err,
+               "max_abs_err": float((got - ref).abs().max()),
+               "vs_complex_max_abs": float((got - c).abs().max()),
+               **wola_bound(rows, n, t)}
+        if on_card:
+            def split():
+                o = wola_fused(h, torch.complex(re, im), n)
+                return o.real.contiguous(), o.imag.contiguous()
+            rec.update(
+                ms=median_ms(lambda: wola_fused_planes(h, re, im, n),
+                             reps=reps),
+                complex_ms=median_ms(lambda: wola_fused(h, xc, n),
+                                     reps=reps),
+                interleave_split_ms=median_ms(split, reps=reps),
+                plain_ms=median_ms(
+                    lambda: wola_planes_plain(h, re, im, n), reps=reps))
+        out["wola"].append(rec)
+        del xc, c, ref, got
+    for (b, n) in peaks:
+        plan, (x, bins) = plans[(b, n)], xs[(b, n)]
+        check(plan.peak_viable(), f"call_peak plan {plan.factors}")
+        f1 = plan._leading_stages(x)
+        tw = plan._device_table("peak", dev)
+        km, kb = stage2_peak(f1, tw, tuple(plan.factors))
+        pm, pb = stage2_peak_plain(f1, tw, tuple(plan.factors))
+        s2_err = float(((km - pm).abs() / pm).max())
+        check(kb.tolist() == pb.tolist() == bins and s2_err < CAF_RTOL,
+              f"kernel #4 at {b} x {n}: bins {kb.tolist()} / {pb.tolist()} "
+              f"vs {bins}, rel err {s2_err:.3e}")
+        rec = {"shape": f"{b} x {n}", "rows": b, "n": n,
+               "factors": list(plan.factors),
+               "stage2_rows": list(f1.shape),
+               "stage2_max_abs_err": float((km - pm).abs().max()),
+               "stage2_rel_err": s2_err, **call_peak_bound(b, plan.factors)}
+        nrows, j = f1.shape[0] * f1.shape[1], plan.factors[-1]
+        rec["stage2_bound"] = bound(nrows * row_flop(j),
+                                    nrows * (9.0 * j + fft_flop(j)),
+                                    8.0 * (f1.numel() + tw.numel()) + 12 * b)
+        if on_card:
+            rec.update(
+                stage2_ms=median_ms(lambda: stage2_peak(
+                    f1, tw, tuple(plan.factors)), reps=reps),
+                plain_ms=median_ms(lambda: stage2_peak_plain(
+                    f1, tw, tuple(plan.factors)), reps=reps),
+                ms=median_ms(lambda: plan.call_peak(x), reps=reps),
+                library_ms=median_ms(lambda: torch.fft.fft(
+                    x).abs().square().max(dim=-1), reps=reps))
+        del f1
+        # the whole call against its twin: einsum leading stages (full
+        # f32), torch.fft last stage
+        cm, cb = plan.call_peak(x)
+        tm, tb = stage2_peak_plain(leading_stages_plain(x, plan.factors), tw,
+                                   tuple(plan.factors))
+        rec["twin_rel_err"] = float(((cm - tm).abs() / tm).max())
+        check(cb.tolist() == tb.tolist() == bins
+              and rec["twin_rel_err"] < CAF_RTOL,
+              f"call_peak at {b} x {n} vs its twin: bins {cb.tolist()} / "
+              f"{tb.tolist()}, rel err {rec['twin_rel_err']:.3e}")
+        out["peaks"].append(rec)
+
+    # the path, through the public entry points, counts at 0 just before ----
+    xf, _ = xs[fft_shape]
+    plan_f = get_fft_plan(fft_shape[1])
+    x_last = xs[peaks[-1]][0]
+    xr, xi = x_last.real.contiguous(), x_last.imag.contiguous()
+    if on_card:
+        torch.cuda.synchronize()
+    for kernel in kernels:
+        kernel.launches = 0
+    wola_out, routes = {}, {}
+    for key, (h, re, im) in planes.items():
+        flat = wola_planes_flat(h, re, im, key[0])
+        two, routes[key] = _wola_planes_impl(h, re, im, key[0])
+        wola_out[key] = (flat, two)
+    spec = fft(xf)
+    back = ifft(spec)
+    inv = ifft(xf)
+    called = plan_f(xf)
+    permuted = plan_f.call_permuted(xf)
+    peak_out = {k: plans[k].call_peak(xs[k][0]) for k in peaks}
+    planes_out = plans[peaks[-1]].call_peak_planes(xr, xi)
+    if on_card:
+        torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    want = {k.__name__: 0 for k in kernels}
+    if on_card:
+        want["wola_fused_planes"] = 2 * len(wola_shapes)
+        want["stage2_peak"] = len(peaks) + 1
+    check(launches == want, f"transform launches {launches}, expected {want}")
+    want_route = "fused-planes-hopper" if on_card else "plain"
+    check(all(r[0] == want_route for r in routes.values()),
+          f"transform WOLA routes {routes}")
+    out["launches"], out["routes"] = launches, {
+        f"{k[2]}x{k[0]}": list(r) for k, r in routes.items()}
+
+    # the gates ---------------------------------------------------------------
+    for key, (flat, two) in wola_out.items():
+        h, re, im = planes[key]
+        ref = wola_fused_planes(h, re, im, key[0])
+        check(all(f.shape == (key[2] * key[0],) for f in flat)
+              and all(torch.equal(f, w.reshape(-1)) and torch.equal(w, r)
+                      for f, w, r in zip(flat, two, ref)),
+              f"wola_planes(_flat) {key}: outputs differ from the kernel "
+              "check's")
+    x128 = xf.cpu().to(torch.complex128)
+    spec128 = torch.fft.fft(x128)
+    out["fft_rel_err"] = float((spec.cpu() - spec128).abs().max()
+                               / spec128.abs().max())
+    ref_inv = torch.fft.ifft(x128)
+    out["ifft_rel_err"] = float((inv.cpu() - ref_inv).abs().max()
+                                / ref_inv.abs().max())
+    out["roundtrip_rel_err"] = float((back - xf).abs().max()
+                                     / xf.abs().max())
+    check(out["fft_rel_err"] < TF_RTOL and out["ifft_rel_err"] < TF_RTOL
+          and out["roundtrip_rel_err"] < TF_RTOL,
+          f"fft / ifft / round trip vs complex128: {out['fft_rel_err']:.3e}"
+          f" / {out['ifft_rel_err']:.3e} / {out['roundtrip_rel_err']:.3e}")
+    perm = torch.from_numpy(plan_f.permutation).long().to(dev)
+    inverse = torch.empty_like(perm)
+    inverse[perm] = torch.arange(perm.shape[0], device=dev)
+    check(torch.equal(called, spec) and torch.equal(permuted[:, inverse],
+                                                    spec),
+          "__call__ / call_permuted differ from fft")
+    del ref_inv, back, inv, called, permuted
+    for (key, (pk, pb)), rec in zip(peak_out.items(), out["peaks"]):
+        x, bins = xs[key]
+        mag = (spec128 if key == fft_shape else torch.fft.fft(
+            x.cpu().to(torch.complex128))).abs() ** 2
+        rm, rb = mag.max(dim=-1)
+        rec["peak_rel_err"] = float(((pk.cpu().double() - rm).abs()
+                                     / rm).max())
+        check(pk.shape == pb.shape == (key[0],)
+              and pb.tolist() == rb.tolist() == bins
+              and rec["peak_rel_err"] < CAF_RTOL,
+              f"call_peak at {key[0]} x {key[1]}: bins {pb.tolist()} vs "
+              f"complex128 {rb.tolist()}, planted {bins}; peak rel err "
+              f"{rec['peak_rel_err']:.3e}")
+        del mag
+    check(torch.equal(planes_out[0], peak_out[peaks[-1]][0])
+          and torch.equal(planes_out[1], peak_out[peaks[-1]][1]),
+          "call_peak_planes differs from call_peak")
+
+    if on_card:
+        h, re, im = planes[wola_shapes[0]]
+        n0 = wola_shapes[0][0]
+        out["ms"] = {
+            "wola_planes_flat": median_ms(lambda: wola_planes_flat(
+                h, re, im, n0), reps=reps),
+            "fft": median_ms(lambda: fft(xf), reps=reps),
+            "ifft": median_ms(lambda: ifft(xf), reps=reps),
+            "__call__": median_ms(lambda: plan_f(xf), reps=reps),
+            "call_permuted": median_ms(lambda: plan_f.call_permuted(xf),
+                                       reps=reps),
+            "call_peak_planes": median_ms(lambda: plans[peaks[-1]]
+                                          .call_peak_planes(xr, xi),
+                                          reps=reps)}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2030,7 +2324,8 @@ def main() -> int:
         plan_text as upfirdn_plan_text, upfirdn_plan, upfirdn_planes,
         upfirdn_planes_plain)
     from pydsproutines_tpu_torch.ops.hopper.wola_fused import (
-        plan_text as wola_plan_text, wola_fused, wola_plain, wola_plan)
+        plan_text as wola_plan_text, wola_fused, wola_fused_planes,
+        wola_plain, wola_plan)
     from pydsproutines_tpu_torch.ops.wola import Channeliser, select_wola_path
     from pydsproutines_tpu_torch.ops.xcorr import (fast_xcorr, power_prefix,
                                                    select_xcorr_path)
@@ -2435,7 +2730,8 @@ def main() -> int:
     launches = {k.__name__: k.launches for k in kernels}
     det_launches = {k: launches[k] - before[k] for k in launches}
     # this slice's paths, each with every count at 0 just before it
-    every = kernels + (group_caf, sliding_multiply_normalised)
+    every = kernels + (group_caf, sliding_multiply_normalised,
+                       wola_fused_planes)
     for kernel in every:
         kernel.launches = 0
     timer.evt("counts reset")
@@ -2683,6 +2979,33 @@ def main() -> int:
               f"{r['capture']['launches']} {tag}")
     parallel = {"card": card, "one_rank": par_one, "four_ranks": par_four}
 
+    # this slice's path: the transform API and WOLA's plane entry points,
+    # counts at 0 before it
+    tf = transform(dev, every)
+    for w in tf["wola"]:
+        print(f"transform wola_planes {w['shape']}: plane instance "
+              f"{w['ms']:.4f} ms, complex instance {w['complex_ms']:.4f} ms,"
+              f" interleave -> kernel -> split {w['interleave_split_ms']:.4f}"
+              f" ms, plain {w['plain_ms']:.4f} ms, bound {w['bound_ms']:.4f}"
+              f" ms ({w['bound_by']}); equal to the complex instance (max|d| "
+              f"{w['vs_complex_max_abs']:.1e}), rel err vs plain "
+              f"{w['rel_err']:.3e} {tag}")
+    for pk in tf["peaks"]:
+        print(f"transform call_peak {pk['shape']} (plan {pk['factors']}, "
+              f"kernel #4 on {pk['stage2_rows']}): {pk['ms']:.4f} ms, "
+              f"torch.fft -> |.|^2 -> max {pk['library_ms']:.4f} ms, bound "
+              f"{pk['bound_ms']:.4f} ms ({pk['bound_by']}); kernel #4 alone "
+              f"{pk['stage2_ms']:.4f} ms, its twin {pk['plain_ms']:.4f} ms, "
+              f"bound {pk['stage2_bound']['bound_ms']:.4f} ms "
+              f"({pk['stage2_bound']['bound_by']}); bins equal to complex128"
+              f", peak rel err {pk['peak_rel_err']:.3e} {tag}")
+    print(f"transform {TF_FFT[0]} x {TF_FFT[1]}: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in tf["ms"].items())
+          + f"; fft / ifft vs complex128 {tf['fft_rel_err']:.3e} / "
+          f"{tf['ifft_rel_err']:.3e}, round trip "
+          f"{tf['roundtrip_rel_err']:.3e}; launches {tf['launches']}, "
+          f"routes {sorted({r[0] for r in tf['routes'].values()})} {tag}")
+
     # 4) whole-step time -------------------------------------------------------
     step_ms = median_ms(lambda: rcv.step(tri, xri), reps=5)
     print(f"receiver step, {ROWS * NCH} samples: {step_ms:.4f} ms "
@@ -2767,7 +3090,23 @@ def main() -> int:
          "sweep": {"shape": f"n={N_4} x {SHIFTS_4} listed shifts",
                    "ms": sweep_ms, "plain_ms": sweep_plain_ms,
                    "factors": [n1, n2],
-                   "column_pass_launches": launches["window_columns"]}},
+                   "column_pass_launches": launches["window_columns"]},
+         "transform_launches": tf["launches"]["stage2_peak"],
+         "call_peak": tf["peaks"]},
+        {"name": "wola_fused_planes", "route": "cuda",
+         "source": "pydsproutines_tpu_torch/csrc/wola_fused.cu",
+         "replaces": "pydsproutines_tpu/ops/pallas/wola_fused.py:99",
+         "shape": tf["wola"][0]["shape"],
+         "launches": tf["launches"]["wola_fused_planes"],
+         "max_abs_err": tf["wola"][0]["max_abs_err"],
+         "ms": tf["wola"][0]["ms"], "plain_ms": tf["wola"][0]["plain_ms"],
+         **costs({k: tf["wola"][0][k] for k in (
+             "bound_ms", "bound_by", "bound_flop", "algorithm_flop",
+             "bound_bytes")}, None),
+         "library": "none", "io": "float32 quadrature planes in and out",
+         "complex_instance_ms": tf["wola"][0]["complex_ms"],
+         "interleave_split_ms": tf["wola"][0]["interleave_split_ms"],
+         "shapes": tf["wola"]},
         {"name": "upfirdn_planes", "route": "cuda",
          "source": "pydsproutines_tpu_torch/csrc/upfirdn.cu",
          "replaces": "pydsproutines_tpu/ops/pallas/upfirdn.py:109",
@@ -2822,6 +3161,9 @@ def main() -> int:
             "scene_ms", "pipeline_ms_per_pair", "gsample_shift_per_s",
             "fine_ms_3_pairs", "grid_ms", "gpoint_pair_per_s",
             "crb_host_ms", "propagate_exact_ms")},
+        "transform": {k: tf[k] for k in (
+            "ms", "fft_rel_err", "ifft_rel_err", "roundtrip_rel_err",
+            "routes")},
         "analysis": {**ana["ms"], "busy_share": ana["busy_share"],
                      "mp_gpairs_per_s": ana["mp_gpairs_per_s"],
                      "launches": ana["launches"]}, "parallel": parallel,

@@ -30,12 +30,20 @@
 //   3. the rows, conjugated back, stored coalesced; rows past `rows` (the
 //      last chunk's tail) are neither read nor stored.
 //
+// Two instances, one per I/O layout (float2 or float samples): complex64 in
+// and out (pdsp_wola_fused, behind ops/wola.wola), or the TPU kernel's float32
+// quadrature planes in and out (pdsp_wola_fused_planes, behind
+// ops/wola.wola_planes / wola_planes_flat), so that a plane caller pays no
+// interleave before the kernel and no split after it. Only the loads in
+// step 1 and the stores in step 3 differ; the arithmetic is one template
+// body, so the two give bit-identical outputs on the same samples.
+//
 // A run re-reads the B - 1 rows of history before it; they come from L1/L2
 // (the neighbouring runs of the block read them), so device memory sees each
 // input row about once. Indices into device memory are 64-bit.
 //
-// What bounds it on the H100: bytes. 16 bytes a sample move (8 in, 8 out:
-// 134 MB at 8M samples, 40 us at 3.35 TB/s). At N = 64, B = 32 the fold is
+// What bounds it on the H100: bytes. 16 bytes a sample move in either
+// layout (8 in, 8 out: 134 MB at 8M samples, 40 us at 3.35 TB/s). At N = 64, B = 32 the fold is
 // 1.07 GFLOP (16 us at the f32 peak, ~0.15 L1 loads per complex-by-real
 // FMA pair) and the FFT ~0.25 GFLOP; the shared-memory tile of a chunk is
 // ~16 KB, so several blocks share an SM at every N the port runs.
@@ -71,11 +79,43 @@ __device__ __forceinline__ void load_taps(float (&hk)[KB],
   }
 }
 
-template <int KB>
+// The kernel's two I/O layouts, chosen by the sample type T: where sample i
+// of xq is read and output i is written. The fold, the FFT and their
+// arithmetic are the kernel's own, so both instances give the same bits on
+// the same input. T = float2: complex64 in and out, one float2 a sample
+// (the second pointers unused). T = float: float32 quadrature planes in and
+// out (the TPU kernel's own I/O, ops/pallas/wola_fused.py:99), one float
+// from each plane at the same index, so a warp's loads and stores are one
+// contiguous segment of each plane. The pointers are __restrict__ kernel
+// parameters: with them as members of an I/O struct instead, the complex
+// instance at N = 128, 256 ran 0.175 ms of device time against 0.144 on an
+// H100 (scripts/exp_transform.py), and this form gives back the 0.144.
+__device__ __forceinline__ float2 load_sample(const float2* __restrict__ x,
+                                              const float2*, long long i) {
+  return __ldg(x + i);
+}
+__device__ __forceinline__ float2 load_sample(const float* __restrict__ re,
+                                              const float* __restrict__ im,
+                                              long long i) {
+  return make_float2(__ldg(re + i), __ldg(im + i));
+}
+__device__ __forceinline__ void store_sample(float2* __restrict__ out,
+                                             float2*, long long i, float2 v) {
+  out[i] = v;
+}
+__device__ __forceinline__ void store_sample(float* __restrict__ re,
+                                             float* __restrict__ im,
+                                             long long i, float2 v) {
+  re[i] = v.x;
+  im[i] = v.y;
+}
+
+template <int KB, class T>
 __global__ void __launch_bounds__(kThreads, WOLA_MIN_BLOCKS)
-wola_fold_fft(const float2* __restrict__ x, const float* __restrict__ taps,
-              const float2* __restrict__ wl, const int* __restrict__ rev,
-              float2* __restrict__ out, long long rows, int n, int nb,
+wola_fold_fft(const T* __restrict__ x, const T* __restrict__ xim,
+              const float* __restrict__ taps, const float2* __restrict__ wl,
+              const int* __restrict__ rev, T* __restrict__ out,
+              T* __restrict__ oim, long long rows, int n, int nb,
               LinePlan lp, int rc, int generic) {
   extern __shared__ float2 tile[];
   const int S = line_stride(n), tid = threadIdx.x;
@@ -101,8 +141,9 @@ wola_fold_fft(const float2* __restrict__ x, const float* __restrict__ taps,
 #pragma unroll
       for (int i = 0; i < WM + KB - 1; ++i) {
         const long long q = q0 + i;
-        const float2 v = (q >= 0 && q < rows) ? __ldg(x + q * n + col)
-                                              : make_float2(0.f, 0.f);
+        const float2 v = (q >= 0 && q < rows)
+                             ? load_sample(x, xim, q * n + col)
+                             : make_float2(0.f, 0.f);
 #pragma unroll
         for (int kb = 0; kb < KB; ++kb) {
           const int m = i - (KB - 1) + kb;
@@ -128,7 +169,7 @@ wola_fold_fft(const float2* __restrict__ x, const float* __restrict__ taps,
   for (int e = tid; e < valid * n; e += kThreads) {
     const int r = by_n.div(e), k = e - r * n;
     const float2 v = tile[(size_t)r * S + k];
-    out[(r0 + r) * n + k] = make_float2(v.x, -v.y);
+    store_sample(out, oim, (r0 + r) * n + k, make_float2(v.x, -v.y));
   }
 }
 
@@ -209,27 +250,22 @@ wola_direct_kernel(const float2* __restrict__ x,
   }
 }
 
-template <int KB>
-int launch_fold_fft(const float2* x, const float* taps, const float2* wl,
-                    const int* rev, float2* out, long long rows, int n,
-                    int nb, const LinePlan& lp, int rc, int generic,
-                    size_t smem, cudaStream_t st) {
-  return (int)launch(wola_fold_fft<KB>, (rows + rc - 1) / rc, kThreads, smem,
-                     st, x, taps, wl, rev, out, rows, n, nb, lp, rc, generic);
+template <int KB, class T>
+int launch_fold_fft(const T* x, const T* xim, const float* taps,
+                    const float2* wl, const int* rev, T* out, T* oim,
+                    long long rows, int n, int nb, const LinePlan& lp, int rc,
+                    int generic, size_t smem, cudaStream_t st) {
+  return (int)launch(wola_fold_fft<KB, T>, (rows + rc - 1) / rc, kThreads,
+                     smem, st, x, xim, taps, wl, rev, out, oim, rows, n, nb,
+                     lp, rc, generic);
 }
 
-}  // namespace
-
-// x: (>= rows*n,) complex64; taps: (nb*n,) float32; wl: the N-point line
-// table of ops/fft.line_table over the nr radices (host ints, stage order;
-// nr = 0 for N = 1); rev: (n,) int32 digit reversal; out: (rows, n)
-// complex64. kb: taps a thread holds (1, 2, 4, 8, 16 or 32); rc: rows a
-// block (a multiple of 8, max(1, 256/n) runs). Returns a cudaError_t.
-extern "C" int pdsp_wola_fused(const void* x, const void* taps,
-                               const void* wl, const void* rev, void* out,
-                               long long rows, int n, int nb,
-                               const int* radices, int nr, int kb, int rc,
-                               void* stream) {
+// Checks the plan and launches the instance of sample type T; a
+// cudaError_t.
+template <class T>
+int run_wola(const T* x, const T* xim, const void* taps, const void* wl,
+             const void* rev, T* out, T* oim, long long rows, int n, int nb,
+             const int* radices, int nr, int kb, int rc, void* stream) {
   if (rows <= 0 || n <= 0 || nb <= 0 || nr < 0 || nr > MAX_RADICES ||
       rc < WM || rc % WM)
     return (int)cudaErrorInvalidValue;
@@ -249,18 +285,16 @@ extern "C" int pdsp_wola_fused(const void* x, const void* taps,
   const size_t smem = (size_t)rc * line_stride(n) * sizeof(float2) *
                       (generic ? 2 : 1);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  const float2* xp = static_cast<const float2*>(x);
   const float* tp = static_cast<const float*>(taps);
   const float2* wp = static_cast<const float2*>(wl);
   const int* rp = static_cast<const int*>(rev);
-  float2* op = static_cast<float2*>(out);
   cudaStream_t st = (cudaStream_t)stream;
   const int g = generic ? 1 : 0;
   switch (kb) {
 #define PDSP_WOLA_KB(K)                                                  \
     case K:                                                              \
-      return launch_fold_fft<K>(xp, tp, wp, rp, op, rows, n, nb, lp, rc, g, \
-                                smem, st);
+      return launch_fold_fft<K>(x, xim, tp, wp, rp, out, oim, rows, n, nb, \
+                                lp, rc, g, smem, st);
     PDSP_WOLA_KB(1)
     PDSP_WOLA_KB(2)
     PDSP_WOLA_KB(4)
@@ -270,6 +304,37 @@ extern "C" int pdsp_wola_fused(const void* x, const void* taps,
 #undef PDSP_WOLA_KB
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// x: (>= rows*n,) complex64; taps: (nb*n,) float32; wl: the N-point line
+// table of ops/fft.line_table over the nr radices (host ints, stage order;
+// nr = 0 for N = 1); rev: (n,) int32 digit reversal; out: (rows, n)
+// complex64. kb: taps a thread holds (1, 2, 4, 8, 16 or 32); rc: rows a
+// block (a multiple of 8, max(1, 256/n) runs). Returns a cudaError_t.
+extern "C" int pdsp_wola_fused(const void* x, const void* taps,
+                               const void* wl, const void* rev, void* out,
+                               long long rows, int n, int nb,
+                               const int* radices, int nr, int kb, int rc,
+                               void* stream) {
+  return run_wola(static_cast<const float2*>(x), (const float2*)nullptr, taps,
+                  wl, rev, static_cast<float2*>(out), (float2*)nullptr, rows,
+                  n, nb, radices, nr, kb, rc, stream);
+}
+
+// The same on float32 planes: xre, xim (>= rows*n,) each; out_re, out_im
+// (rows, n) each. Bit-identical to pdsp_wola_fused on the same samples.
+extern "C" int pdsp_wola_fused_planes(const void* xre, const void* xim,
+                                      const void* taps, const void* wl,
+                                      const void* rev, void* out_re,
+                                      void* out_im, long long rows, int n,
+                                      int nb, const int* radices, int nr,
+                                      int kb, int rc, void* stream) {
+  return run_wola(static_cast<const float*>(xre),
+                  static_cast<const float*>(xim), taps, wl, rev,
+                  static_cast<float*>(out_re), static_cast<float*>(out_im),
+                  rows, n, nb, radices, nr, kb, rc, stream);
 }
 
 // The first version (direct IDFT), for scripts/exp_wola.py: tw (n,)

@@ -1,11 +1,18 @@
-"""DFT plans and the f32 tables of the Hopper CAF kernels.
+"""The transform API, DFT plans and the f32 tables of the Hopper CAF kernels.
 
-The JAX package's ``FourStepFFT`` exists because XLA's TPU FFT was slow; it
-is not ported as a transform. The plain twins use ``torch.fft``. What the
-kernels need is the plan's factors and their tables, built here on the host
-from float64 phases reduced mod their period before the exponential (the
-pattern of ``pydsproutines_tpu/ops/fft.py`` and ``ops/pallas/fused_caf3.py``),
-stored complex64.
+The transform API is the JAX package's: ``FourStepFFT(n)`` (its ``factors``
+and ``viable`` chosen by the same rules, ``fft_factors``), ``get_fft_plan``,
+``fft`` and ``ifft``. The JAX package computes the transform as matrix
+stages because XLA's TPU FFT was slow; here the transform is
+``torch.fft`` on the input's device (f32-exact where the JAX stages run at
+the TPU's default, bf16-grade, precision), and the plan's factors drive
+the permuted layout and the fused peak path, whose last stage is TPU
+kernel #4 (``ops/hopper/fft_peak.stage2_peak``).
+
+The kernels need the plan's factors and their tables, built here on the
+host from float64 phases reduced mod their period before the exponential
+(the pattern of ``pydsproutines_tpu/ops/fft.py`` and
+``ops/pallas/fused_caf3.py``), stored complex64.
 
 Two-factor split n = n1*n2 (kernels #2 and #4), t = t1*n2 + t2,
 k = k1 + n1*k2:
@@ -528,3 +535,200 @@ def peak_winner(rowmax: torch.Tensor, rowarg: torch.Tensor, factors):
     cand = torch.where(rowmax == peak[..., None], bins,
                        torch.iinfo(torch.int64).max)
     return peak, cand.min(dim=-1).values
+
+
+def _fft_output_perm(factors) -> np.ndarray:
+    """True bin of each position of the permuted spectrum of the plan
+    ``factors`` (the JAX package's ``_fft_output_perm``): position
+    (k1, j) holds bin k1 + n1 * perm_rest[j], k1-major."""
+    if len(factors) == 1:
+        return np.arange(factors[0], dtype=np.int64)
+    n1 = factors[0]
+    inner = _fft_output_perm(factors[1:])
+    return (np.arange(n1, dtype=np.int64)[:, None]
+            + n1 * inner[None, :]).reshape(-1)
+
+
+PEAK_MODES = ("bf16", "bf16x3", "f32")
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, a numpy dtype or a dtype string."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+class FourStepFFT:
+    """Plan of an n-point DFT over the JAX package's stage factors
+    (``pydsproutines_tpu/ops/fft.py:151``): ``factors`` and ``viable`` are
+    the JAX plan's for every n (two balanced factors while their sum is at
+    most 3000, else the multi-stage split when cheaper, a single stage for
+    128 <= n < 4096, None for e.g. a large prime; ``factors`` given
+    explicitly are kept).
+
+    ``__call__`` is the DFT along the last axis, ``torch.fft.fft`` on the
+    input's device and in its precision (complex128 stays complex128):
+    the JAX stages are XLA einsums outside any Pallas kernel, so the
+    library FFT is their plain form. ``call_permuted`` orders the same
+    spectrum as the JAX stages leave it (``permutation``). ``call_peak``
+    runs the leading stages in torch and the last stage on kernel #4.
+
+    Not ported: ``device_gen`` and the host stage matrices (``stage_w``,
+    ``stage_tw``, ``_mats``), the TPU transport's workarounds for large
+    embedded constants. ``dtype`` (a torch or numpy dtype or a string) is
+    kept as ``self.dtype``; the transforms follow their input's dtype.
+    """
+
+    def __init__(self, n: int, dtype=torch.complex64, max_factor: int = 8192,
+                 factors: list[int] | None = None):
+        self.n = int(n)
+        self.dtype = _torch_dtype(dtype)
+        if factors is None:
+            factors = fft_factors(self.n, max_factor)
+            self.viable = factors is not None
+        else:
+            factors = [int(f) for f in factors]
+            self.viable = self.n >= 4096 and len(factors) >= 2
+            if not self.viable and 128 <= self.n < 4096:
+                factors, self.viable = [self.n], True
+        self.factors = factors if self.viable else None
+        self._tables = {}
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.fft.fft(x, dim=-1)
+
+    def call_permuted(self, x: torch.Tensor) -> torch.Tensor:
+        """The DFT in the permuted order of the JAX stages: position j holds
+        bin ``permutation[j]`` (the natural order where the plan is not
+        viable, as in JAX)."""
+        out = self(x)
+        if not self.viable:
+            return out
+        return out[..., self._device_table("perm", out.device)]
+
+    @property
+    def permutation(self) -> np.ndarray:
+        """int32 host array: the true bin of each ``call_permuted``
+        position."""
+        if not self.viable:
+            raise ValueError(f"FourStepFFT({self.n}) is not viable: it has "
+                             "no stage order")
+        return _fft_output_perm(self.factors).astype(np.int32)
+
+    def peak_viable(self, mode: str = "bf16") -> bool:
+        """True when ``call_peak`` can run this plan: at least two factors
+        and a last factor J in [2, SMEM_LINE_MAX = 8192], the row length
+        kernel #4's shared-memory FFT takes (``row_plan``). The JAX test is
+        a VMEM budget for the (J, J) stage matrix and row tiles
+        (``pick_row_tile``), which refuses some plans the port takes, e.g.
+        a two-factor plan with J = 8192; ``mode`` does not change the
+        answer here."""
+        return (self.viable and len(self.factors) >= 2
+                and 2 <= self.factors[-1] <= SMEM_LINE_MAX)
+
+    def _device_table(self, name: str, device: torch.device):
+        """A table of the plan on ``device``, built once: "perm" (the
+        gather of ``call_permuted``), "tw<s>" (stage s's twiddle, m =
+        prod(factors[s:]) split as n1 x rest: exp(-2*pi*i*k1*j/m)), "peak"
+        (kernel #4's (K1, J) twiddle). The tables stay with the plan, and
+        ``get_fft_plan`` keeps its plans: the 10^7 plan's stage-0 twiddle
+        holds 80 MB on each device it ran on."""
+        key = (name, device)
+        if key not in self._tables:
+            f = self.factors
+            if name == "perm":
+                t = torch.from_numpy(_fft_output_perm(f))
+            elif name == "peak":
+                t = torch.from_numpy(peak_consts(f)[0])
+            else:
+                s = int(name[2:])
+                m = math.prod(f[s:])
+                t = torch.from_numpy(_phase_exp(np.arange(f[s]),
+                                                np.arange(m // f[s]), m))
+            self._tables[key] = t.to(device)
+        return self._tables[key]
+
+    def _leading_stages(self, x: torch.Tensor) -> torch.Tensor:
+        """Stages 0..L-2 over the rows of x (B, n) complex64: stage s a
+        ``torch.fft`` of length f_s down the strided axis of the (rows, f_s,
+        rest) view, times its twiddle, the last of them without it (the JAX
+        ``call_peak``, ``pydsproutines_tpu/ops/fft.py:327-335``). Returns
+        the (B * f0 * ... * f_{L-3}, K1, J) input of kernel #4, rows in
+        digit order (k0, ..., k_{L-2})."""
+        f = self.factors
+        cur, lead, m = x, x.shape[0], self.n
+        for s, n1 in enumerate(f[:-1]):
+            cur = torch.fft.fft(cur.reshape(lead, n1, m // n1), dim=1)
+            if s < len(f) - 2:
+                cur.mul_(self._device_table(f"tw{s}", x.device))
+            lead, m = lead * n1, m // n1
+        return cur.contiguous()
+
+    def call_peak(self, x: torch.Tensor, mode: str = "bf16",
+                  interpret: bool = False):
+        """(peak |X[k]|^2 as float32, its bin k as int64) over the DFT of
+        each row of x (..., n), in x's leading shape, without the spectrum:
+        the leading stages in torch (``_leading_stages``), then the last
+        twiddle, the J-point DFT, |.|^2 and the peak on kernel #4
+        (``stage2_peak``: the kernel for a CUDA tensor, its plain twin for a
+        CPU one). Ties go to the lowest true bin, the rule of
+        ``np.argmax`` on the natural spectrum (the JAX docstring promises
+        the first in permuted order).
+
+        Every route computes in f32 whatever ``mode`` is ("bf16", "bf16x3"
+        or "f32", validated as JAX does): the port takes no precision below
+        f32. ``interpret`` is kept for the JAX signature and has no effect.
+        Raises ValueError where ``peak_viable`` does not hold."""
+        if mode not in PEAK_MODES:
+            raise ValueError(f"call_peak mode {mode!r} is not one of "
+                             f"{PEAK_MODES}")
+        if not self.peak_viable(mode):
+            raise ValueError(f"FourStepFFT({self.n}), factors {self.factors}"
+                             ": no plan of kernel #4 (at least two factors "
+                             f"and a last factor in [2, {SMEM_LINE_MAX}])")
+        if x.shape[-1] != self.n:
+            raise ValueError(f"rows of {x.shape[-1]} samples for an "
+                             f"{self.n}-point plan")
+        from pydsproutines_tpu_torch.ops.hopper.fft_peak import stage2_peak
+        lead = x.shape[:-1]
+        f1 = self._leading_stages(x.reshape(-1, self.n).to(torch.complex64))
+        peak, bins = stage2_peak(f1, self._device_table("peak", x.device),
+                                 tuple(self.factors))
+        return peak.reshape(lead), bins.reshape(lead)
+
+    def call_peak_planes(self, xr: torch.Tensor, xi: torch.Tensor,
+                         mode: str = "bf16", interpret: bool = False,
+                         mats=None):
+        """``call_peak`` over separate real and imaginary planes (..., n).
+        ``mode`` is "bf16" or "f32" (ValueError otherwise, as in JAX); the
+        planes are interleaved once and take ``call_peak``'s path in f32.
+        The JAX plane route exists to store bf16 intermediates; the port
+        keeps f32 ones. ``interpret`` and ``mats`` are kept for the JAX
+        signature and have no effect."""
+        if mode not in ("bf16", "f32"):
+            raise ValueError("call_peak_planes supports bf16/f32 only")
+        return self.call_peak(torch.complex(xr.to(torch.float32),
+                                            xi.to(torch.float32)), mode)
+
+
+@functools.lru_cache(maxsize=64)
+def get_fft_plan(n: int, dtype_str: str = "complex64") -> FourStepFFT:
+    """The cached plan of ``FourStepFFT(n, dtype_str)``."""
+    return FourStepFFT(n, dtype=dtype_str)
+
+
+def fft(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """The DFT along ``axis`` through the plan of its length (the JAX
+    package's drop-in ``fft``)."""
+    if axis not in (-1, x.ndim - 1):
+        return fft(x.movedim(axis, -1), -1).movedim(-1, axis)
+    plan = get_fft_plan(int(x.shape[-1]), "complex128"
+                        if x.dtype == torch.complex128 else "complex64")
+    return plan(x)
+
+
+def ifft(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """The inverse DFT along ``axis``, ``torch.fft.ifft``: equal within
+    rounding to the JAX package's conj(fft(conj(x))) / n."""
+    return torch.fft.ifft(x, dim=axis)

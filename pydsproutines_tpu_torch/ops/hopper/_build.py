@@ -39,6 +39,8 @@ _L = ctypes.c_longlong
 # C signature of every entry point: (argtypes, restype)
 _SIGNATURES = {
     "pdsp_wola_fused": ([_P] * 5 + [_L, _I, _I, _P] + [_I] * 3 + [_P], _I),
+    "pdsp_wola_fused_planes": ([_P] * 7 + [_L, _I, _I, _P] + [_I] * 3 + [_P],
+                               _I),
     "pdsp_wola_direct": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "pdsp_caf_peak": ([_P] * 9 + [_L, _I, _I, _P], _I),
     "pdsp_stage2_peak": ([_P] * 9 + [_I, _I, _P, _I, _P], _I),

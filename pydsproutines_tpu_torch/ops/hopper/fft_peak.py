@@ -15,7 +15,10 @@ only ever passes DFT_J there (``FourStepFFT._peak_consts``), so the port's
 ``stage2_peak(f1, tw, factors)`` takes none: the kernel runs the FFT and the
 twin ``torch.fft.fft``. Ties go to the lowest true bin, as ``torch.argmax``
 on the natural-order spectrum does (the TPU kernel takes the first in its
-permuted order). ``ops/fft.stage2_staged`` is the kernel's schedule in torch.
+permuted order). ``ops/fft.FourStepFFT.call_peak``, whose last stage this
+kernel is, keeps that rule: the one the JAX tests hold ``call_peak`` to
+(``np.argmax`` of the natural spectrum, ``tests/test_fft_peak.py:27-28``).
+``ops/fft.stage2_staged`` is the kernel's schedule in torch.
 
 ``peak_sweep`` is the ``fast_xcorr`` "peak-kernel-hopper" route: a sweep over
 an arbitrary int64 list of shift offsets under a two-pass ``caf_plan`` n =
@@ -41,6 +44,7 @@ from pydsproutines_tpu_torch.ops.fft import (caf_plan, row_plan,
                                              twiddle)
 from pydsproutines_tpu_torch.ops.hopper import _build
 from pydsproutines_tpu_torch.ops.hopper.fused_xcorr import CafLaunch
+from pydsproutines_tpu_torch.utils.dtypes import full_f32
 from pydsproutines_tpu_torch.utils.memory import chunk_shifts
 
 # stage-1 output of the sweep per (shift, sample), complex64
@@ -138,14 +142,16 @@ def leading_stages_plain(x: torch.Tensor, factors) -> torch.Tensor:
     """Stages 0..L-2 of the plan ``factors`` over the rows of x (..., n) in
     torch, the last of them without its twiddle: the (B*rows, K1, J) input
     of ``stage2_peak`` (the XLA einsums of the JAX ``call_peak``,
-    ``pydsproutines_tpu/ops/fft.py:327-335``). A plain twin for the tests;
-    the fast_xcorr routes run their stage 1 in a kernel."""
+    ``pydsproutines_tpu/ops/fft.py:327-335``), in full f32 (no TF32). A
+    plain twin for the tests and of ``FourStepFFT.call_peak``'s leading
+    stages; the fast_xcorr routes run their stage 1 in a kernel."""
     stage_w, stage_tw = stage_tables(factors)
     cur = x.reshape(-1, math.prod(factors))
     for s, n1 in enumerate(factors[:-1]):
         cur = cur.reshape(cur.shape[:-1] + (n1, -1))
         w = torch.from_numpy(stage_w[s]).to(x.device)
-        cur = torch.einsum("kn,...nm->...km", w, cur)
+        with full_f32():
+            cur = torch.einsum("kn,...nm->...km", w, cur)
         if s < len(factors) - 2:
             cur = cur * torch.from_numpy(stage_tw[s]).to(x.device)
     return cur.reshape(-1, factors[-2], factors[-1]).contiguous()

@@ -15,8 +15,16 @@ row (``csrc/fft_smem.cuh``, the radices of ``ops/fft.radix_plan``) takes the
 N * IDFT as conj(FFT(conj(.))). ``wola_staged`` runs that schedule in torch
 over the kernel's own tables, for the tests.
 
-``wola_fused`` routes by the tensor's device: a CPU tensor takes the plain
-twin ``wola_plain``; a CUDA tensor launches the kernel or raises.
+The kernel has two instances, one per I/O layout, with one fold and FFT:
+``wola_fused`` takes a complex64 input and returns complex64 rows;
+``wola_fused_planes`` takes and returns float32 quadrature planes, the TPU
+kernel's own I/O (``wola_fused_planes2`` / ``wola_fused_planes_flat``), so
+a plane caller pays no interleave or split. On the same samples the two
+give bit-identical outputs.
+
+Each wrapper routes by the tensor's device: a CPU tensor takes the plain
+twin (``wola_plain``; ``wola_planes_plain`` on the planes); a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -167,6 +175,48 @@ def wola_fused(f_tap: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
 wola_fused.launches = 0
 
 
+def _check_planes(f_tap: torch.Tensor, re: torch.Tensor, im: torch.Tensor,
+                  n: int) -> None:
+    if f_tap.ndim != 1 or f_tap.is_complex():
+        raise ValueError("wola_fused_planes takes real 1-D taps")
+    if re.ndim != 1 or re.is_complex() or re.shape != im.shape \
+            or re.dtype != im.dtype:
+        raise ValueError("wola_fused_planes takes two real 1-D planes of one "
+                         f"shape and dtype (got {tuple(re.shape)} "
+                         f"{re.dtype}, {tuple(im.shape)} {im.dtype})")
+    if n < 1 or f_tap.shape[-1] % n != 0:
+        raise ValueError(f"tap length {f_tap.shape[-1]} is not a multiple "
+                         f"of N={n}")
+    if not f_tap.device == re.device == im.device:
+        raise ValueError(f"taps on {f_tap.device}, planes on {re.device} "
+                         f"and {im.device}")
+
+
+def wola_planes_plain(f_tap: torch.Tensor, re: torch.Tensor,
+                      im: torch.Tensor, n: int):
+    """Plain twin of ``wola_fused_planes``: ``wola_plain`` on the
+    interleaved samples, split into (rows, n) planes."""
+    out = wola_plain(f_tap, torch.complex(re, im), n, n)
+    return out.real.contiguous(), out.imag.contiguous()
+
+
+def wola_fused_planes(f_tap: torch.Tensor, re: torch.Tensor,
+                      im: torch.Tensor, n: int):
+    """Critically sampled WOLA channelize (N == Dec) of float32 quadrature
+    planes: (out_re, out_im), each (len(re)//n, n) float32, with the same
+    numbers as ``wola_fused(f_tap, torch.complex(re, im), n)``. CPU tensors
+    take the plain twin; CUDA tensors launch the kernel's plane instance."""
+    _check_planes(f_tap, re, im, n)
+    if re.device.type == "cpu":
+        return wola_planes_plain(f_tap, re, im, n)
+    if re.device.type != "cuda":
+        raise ValueError(f"wola_fused_planes: unsupported device {re.device}")
+    return _wola_fused_planes_cuda(f_tap, re, im, n)
+
+
+wola_fused_planes.launches = 0
+
+
 @functools.lru_cache(maxsize=8)
 def _tables(n: int, device: torch.device):
     """(line table, digit reversal, radices as C ints) of the N-point row
@@ -177,6 +227,23 @@ def _tables(n: int, device: torch.device):
     return wl, rev, (ctypes.c_int * max(1, len(rad)))(*rad)
 
 
+def _launch(lib, entry: str, f_tap: torch.Tensor, ins, outs, rows: int,
+            n: int) -> None:
+    """Launch the instance behind C entry ``entry`` on the input and
+    output pointers of ``ins`` / ``outs`` (rows >= 1)."""
+    nb = f_tap.shape[-1] // n
+    plan = wola_plan(n, nb)
+    wl, rev, rad = _tables(n, f_tap.device)
+    with torch.cuda.device(f_tap.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(
+            *(t.data_ptr() for t in ins), f_tap.data_ptr(), wl.data_ptr(),
+            rev.data_ptr(), *(t.data_ptr() for t in outs), rows, n, nb,
+            ctypes.addressof(rad), len(plan["radices"]), plan["kb"],
+            plan["rc"], stream)
+    _build.check(rc, f"{entry} launch (rows={rows}, n={n}, B={nb})")
+
+
 def _wola_fused_cuda(f_tap: torch.Tensor, x: torch.Tensor,
                      n: int) -> torch.Tensor:
     lib = _build.library()
@@ -185,21 +252,32 @@ def _wola_fused_cuda(f_tap: torch.Tensor, x: torch.Tensor,
                          f"taps (got {x.dtype}, {f_tap.dtype})")
     if not (x.is_contiguous() and f_tap.is_contiguous()):
         raise ValueError("the WOLA kernel takes contiguous tensors")
-    rows, nb = x.shape[-1] // n, f_tap.shape[-1] // n
-    plan = wola_plan(n, nb)
+    rows = x.shape[-1] // n
     out = torch.empty((rows, n), dtype=torch.complex64, device=x.device)
     if rows == 0:
         return out
-    wl, rev, rad = _tables(n, x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pdsp_wola_fused(
-            x.data_ptr(), f_tap.data_ptr(), wl.data_ptr(), rev.data_ptr(),
-            out.data_ptr(), rows, n, nb, ctypes.addressof(rad),
-            len(plan["radices"]), plan["kb"], plan["rc"], stream)
-    _build.check(rc, f"wola_fused launch (rows={rows}, n={n}, B={nb})")
+    _launch(lib, "pdsp_wola_fused", f_tap, (x,), (out,), rows, n)
     wola_fused.launches += 1
     return out
+
+
+def _wola_fused_planes_cuda(f_tap: torch.Tensor, re: torch.Tensor,
+                            im: torch.Tensor, n: int):
+    lib = _build.library()
+    if re.dtype != torch.float32 or f_tap.dtype != torch.float32:
+        raise ValueError("the WOLA kernel's plane instance takes float32 "
+                         f"planes and taps (got {re.dtype}, {f_tap.dtype})")
+    if not (re.is_contiguous() and im.is_contiguous()
+            and f_tap.is_contiguous()):
+        raise ValueError("the WOLA kernel takes contiguous tensors")
+    rows = re.shape[-1] // n
+    out = torch.empty((2, rows, n), dtype=torch.float32, device=re.device)
+    if rows == 0:
+        return out[0], out[1]
+    _launch(lib, "pdsp_wola_fused_planes", f_tap, (re, im),
+            (out[0], out[1]), rows, n)
+    wola_fused_planes.launches += 1
+    return out[0], out[1]
 
 
 def wola_direct_cuda(f_tap: torch.Tensor, x: torch.Tensor,

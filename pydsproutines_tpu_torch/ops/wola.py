@@ -8,9 +8,16 @@ PyTorch counterpart of ``pydsproutines_tpu/ops/wola.py``:
 for r in [0, len(x)//Dec), with x zero before index 0 and, when N == 2*Dec,
 the odd channels of (globally) odd rows negated.
 
+``wola`` takes and returns complex samples. ``wola_planes`` and
+``wola_planes_flat`` take float32 quadrature planes (re, im) and return the
+channel matrix as planes: (rows, n) each, or the same storage as 1-D views
+of rows*n (the JAX package's TPU I/O layouts, ``ops/wola.py:123,157``).
+
 ``select_wola_path`` makes the routing decision: N == Dec goes through the
-Hopper kernel (ops/hopper/wola_fused.py), whose CPU twin serves CPU tensors;
-N == 2*Dec is plain torch on any device.
+Hopper kernel (ops/hopper/wola_fused.py), complex or plane instance, whose
+CPU twin serves CPU tensors; N == 2*Dec is plain torch on any device (the
+plane entry points interleave, run ``wola`` and split there, as the JAX
+package does).
 """
 
 from __future__ import annotations
@@ -20,20 +27,25 @@ from torch import nn
 
 from pydsproutines_tpu_torch.ops.hopper.wola_fused import (plan_text,
                                                            wola_fused,
+                                                           wola_fused_planes,
                                                            wola_plain,
                                                            wola_plan)
 from pydsproutines_tpu_torch.utils.device import resolve_device
 from pydsproutines_tpu_torch.utils.freq import make_freq
 
 
-def select_wola_path(n: int, dec: int, device,
-                     taps: int | None = None) -> tuple[str, str]:
-    """The routing decision of ``wola``: (path, reason). On the kernel's
-    route the reason names its plan for ``taps`` taps (default 32 a
-    channel)."""
+def select_wola_path(n: int, dec: int, device, taps: int | None = None,
+                     planes: bool = False) -> tuple[str, str]:
+    """The routing decision of ``wola`` (``planes``: of ``wola_planes``):
+    (path, reason). On the kernel's route the reason names its plan for
+    ``taps`` taps (default 32 a channel)."""
     device = torch.device(device)
     if n == dec and device.type == "cuda":
         nb = max(1, (taps or 32 * n) // n)
+        if planes:
+            return "fused-planes-hopper", (
+                f"N == Dec == {n}: Hopper WOLA kernel, float32 plane I/O "
+                f"instance, {plan_text(wola_plan(n, nb))}")
         return "fused-hopper", (f"N == Dec == {n}: Hopper WOLA kernel, "
                                 f"{plan_text(wola_plan(n, nb))}")
     if n == dec:
@@ -78,6 +90,50 @@ def _wola_impl(f_tap: torch.Tensor, x: torch.Tensor, dec: int,
     odd_chan = torch.arange(n, device=x.device) % 2 == 1
     flip = odd_row[:, None] & odd_chan[None, :]
     return torch.where(flip, -out, out), route
+
+
+def wola_planes(f_tap: torch.Tensor, re: torch.Tensor, im: torch.Tensor,
+                dec: int, n: int | None = None, row_offset: int = 0):
+    """WOLA channelize float32 quadrature planes: the numbers of
+    ``wola(f_tap, torch.complex(re, im), dec, n, row_offset)`` as
+    ``(out_re, out_im)``, each (len(re)//dec, n) float32. At N == Dec a
+    CUDA input launches the kernel's plane instance (no interleave or
+    split); the planes are cut to rows*n samples first."""
+    return _wola_planes_impl(f_tap, re, im, dec, n, row_offset)[0]
+
+
+def wola_planes_flat(f_tap: torch.Tensor, re: torch.Tensor,
+                     im: torch.Tensor, dec: int, n: int | None = None,
+                     row_offset: int = 0):
+    """``wola_planes`` with 1-D outputs: each plane's row-major (rows, n)
+    channel matrix as a view of rows*n samples of the same storage."""
+    o_re, o_im = wola_planes(f_tap, re, im, dec, n, row_offset)
+    return o_re.view(-1), o_im.view(-1)
+
+
+def _wola_planes_impl(f_tap: torch.Tensor, re: torch.Tensor,
+                      im: torch.Tensor, dec: int, n: int | None = None,
+                      row_offset: int = 0):
+    """The routed core of ``wola_planes``; returns (what ``wola_planes``
+    returns, the (path, reason) of ``select_wola_path(..., planes=True)``
+    for this call). At N == Dec the dispatch is ``wola_fused_planes``'s:
+    the plane instance for CUDA tensors, the twin for CPU ones; at N ==
+    2*Dec the planes are interleaved for ``wola`` and its result split."""
+    if n is None:
+        n = dec
+    rows = re.shape[-1] // dec
+    re, im = re.to(torch.float32), im.to(torch.float32)
+    if n != dec:
+        out, route = _wola_impl(f_tap, torch.complex(re, im), dec, n,
+                                row_offset)
+        return (out.real.contiguous(), out.imag.contiguous()), route
+    if f_tap.shape[-1] % n != 0:
+        raise ValueError("Filter tap length must be an integer multiple of N.")
+    route = select_wola_path(n, dec, re.device, f_tap.shape[-1], planes=True)
+    if f_tap.is_complex():
+        f_tap = f_tap.real.contiguous()
+    return wola_fused_planes(f_tap, re[: rows * n], im[: rows * n],
+                             n), route
 
 
 class Channeliser(nn.Module):

@@ -24,7 +24,9 @@ vs the twin's float64 window sums), and the overlap-save route within 1e-6
 of ``sliding_staged``, its schedule in torch over the same tables (f32
 rounding in another order); medfilt routes bit-equal to ``medfilt_staged``.
 The WOLA kernel is also held within 1e-5 of ``wola_staged``, its schedule
-in torch. The plain twins' matrix products run in full f32 (TF32 off).
+in torch, and its plane-I/O instance bit-equal to its complex instance (one
+fold and FFT); ``FourStepFFT.call_peak`` (torch.fft leading stages, then
+kernel #4) is held to the twin's bins and within 1e-4 of its peaks. The plain twins' matrix products run in full f32 (TF32 off).
 """
 
 import numpy as np
@@ -32,7 +34,8 @@ import pytest
 import scipy.signal as sps
 import torch
 
-from pydsproutines_tpu_torch.ops.fft import peak_consts, stage2_staged
+from pydsproutines_tpu_torch.ops.fft import (FourStepFFT, get_fft_plan,
+                                             peak_consts, stage2_staged)
 from pydsproutines_tpu_torch.ops.hopper.fft_peak import (
     leading_stages_plain, peak_sweep, stage2_peak, stage2_peak_plain,
     window_columns, window_columns_plain)
@@ -62,10 +65,13 @@ from pydsproutines_tpu_torch.ops.hopper.upfirdn import (get_upfirdn_size,
                                                         upfirdn_planes_plain,
                                                         upfirdn_staged)
 from pydsproutines_tpu_torch.ops.hopper.wola_fused import (wola_fused,
+                                                           wola_fused_planes,
                                                            wola_plain,
                                                            wola_plan,
                                                            wola_staged)
-from pydsproutines_tpu_torch.ops.wola import select_wola_path
+from pydsproutines_tpu_torch.ops.wola import (_wola_planes_impl,
+                                              select_wola_path,
+                                              wola_planes_flat)
 from pydsproutines_tpu_torch.ops.xcorr import fast_xcorr
 
 pytestmark = pytest.mark.gpu
@@ -127,6 +133,93 @@ def test_wola_kernel_routes_and_geometries(cuda, n, nb, rows):
     path, reason = select_wola_path(n, n, cuda, n * nb)
     assert path == "fused-hopper" and wola_plan(n, nb)["route"] == "fold-fft"
     assert "register fold" in reason and "shared-memory FFT" in reason
+
+
+@pytest.mark.parametrize("n,taps,rows,tail", [
+    (64, 2048, 1001, 0), (64, 512, 777, 13), (128, 1024, 300, 5),
+    (256, 2048, 129, 0), (12, 96, 250, 7), (1, 8, 700, 0),
+])
+def test_wola_plane_instance_equals_the_complex_instance(cuda, n, taps, rows,
+                                                         tail):
+    """The plane-I/O instance against the complex instance on the same
+    samples (bit-equal: one fold and FFT) and against its plain version
+    (1e-5), through ``wola_planes_flat`` with a length that is not a
+    multiple of N; one launch each, the plane route."""
+    rng = np.random.default_rng(n + taps + rows)
+    h = torch.from_numpy(rng.standard_normal(taps).astype(np.float32)).to(cuda)
+    re, im = (torch.from_numpy(rng.standard_normal(rows * n + tail)
+                               .astype(np.float32)).to(cuda)
+              for _ in range(2))
+    before = (wola_fused_planes.launches, wola_fused.launches)
+    p_re, p_im = wola_fused_planes(h, re, im, n)
+    c = wola_fused(h, torch.complex(re, im), n)
+    (f_re, f_im), route = _wola_planes_impl(h, re, im, n)
+    ref = wola_plain(h, torch.complex(re, im), n, n)
+    torch.cuda.synchronize()
+    assert (wola_fused_planes.launches, wola_fused.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert route[0] == "fused-planes-hopper"
+    assert p_re.shape == (rows, n) and p_re.dtype == torch.float32
+    assert torch.equal(p_re, c.real) and torch.equal(p_im, c.imag)
+    assert torch.equal(f_re, p_re) and torch.equal(f_im, p_im)
+    flat = wola_planes_flat(h, re, im, n)
+    assert flat[0].shape == (rows * n,) and torch.equal(flat[0],
+                                                         p_re.reshape(-1))
+    got = torch.complex(p_re, p_im)
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+
+
+def test_wola_plane_instance_refuses_what_it_does_not_take(cuda):
+    h = torch.ones(128, device=cuda)
+    re = torch.zeros(64 * 8, device=cuda)
+    before = wola_fused_planes.launches
+    with pytest.raises(ValueError, match="float32"):
+        wola_fused_planes(h, re.double(), re.double(), 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        wola_fused_planes(h, re[::2], re[::2], 32)
+    with pytest.raises(ValueError, match="taps on"):
+        wola_fused_planes(h.cpu(), re, re, 64)
+    assert wola_fused_planes.launches == before
+
+
+@pytest.mark.parametrize("batch,n", [(16, 2**20), (1, 10_000_000),
+                                     (3, 40960)])
+def test_call_peak_launches_kernel_4_and_matches_its_twin(cuda, batch, n):
+    """``FourStepFFT.call_peak`` (torch.fft leading stages, then kernel #4)
+    against the twin ``leading_stages_plain`` + ``stage2_peak_plain`` at
+    the plans [1024, 1024], [200, 200, 250] (J = 250 rows, 40,000 rows a
+    transform) and [40, 32, 32]: bins equal to the planted tones, peaks
+    within 1e-4; one launch a call."""
+    plan = get_fft_plan(n) if n != 40960 else FourStepFFT(n, factors=[40, 32,
+                                                                       32])
+    rng = np.random.default_rng(batch)
+    bins = (np.arange(batch) * 7919 + 123) % n
+    x = torch.from_numpy((0.5 * (rng.standard_normal((batch, n))
+                                 + 1j * rng.standard_normal((batch, n))))
+                         .astype(np.complex64)).to(cuda)
+    t = torch.arange(n, device=cuda, dtype=torch.float64)
+    for r, k in enumerate(bins.tolist()):
+        x[r] += torch.exp(2j * np.pi * k * t / n).to(torch.complex64)
+    before = stage2_peak.launches
+    km, kb = plan.call_peak(x)
+    torch.cuda.synchronize()
+    assert stage2_peak.launches == before + 1
+    f1 = leading_stages_plain(x, plan.factors)
+    tw = torch.from_numpy(peak_consts(plan.factors)[0]).to(cuda)
+    pm, pb = stage2_peak_plain(f1, tw, plan.factors)
+    assert kb.tolist() == pb.tolist() == bins.tolist()
+    assert float(((km - pm).abs() / pm).max()) < 1e-4
+    km2, kb2 = plan.call_peak_planes(x.real.contiguous(),
+                                     x.imag.contiguous(), mode="f32")
+    assert torch.equal(km2, km) and torch.equal(kb2, kb)
+
+
+def test_call_peak_refuses_a_plan_kernel_4_does_not_take(cuda):
+    before = stage2_peak.launches
+    with pytest.raises(ValueError, match="no plan of kernel #4"):
+        FourStepFFT(2048).call_peak(torch.zeros(2048, dtype=torch.complex64,
+                                                device=cuda))
+    assert stage2_peak.launches == before
 
 
 @pytest.mark.parametrize("n,step,nshifts,batch", [

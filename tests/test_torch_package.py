@@ -83,6 +83,53 @@ def test_only_parallel_is_left_to_port():
     assert missing <= TO_PORT
 
 
+def _public_surface(path: Path) -> dict[str, list[str]]:
+    """Public top-level ``def``s and ``class``es of a module, read by ast,
+    each class with its public methods and ``__call__``."""
+    surface = {}
+    for node in ast.parse(path.read_text()).body:
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef)) or node.name.startswith("_"):
+            continue
+        surface[node.name] = [
+            m.name for m in getattr(node, "body", [])
+            if isinstance(node, ast.ClassDef)
+            and isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))
+            and (not m.name.startswith("_") or m.name == "__call__")]
+    return surface
+
+
+JAX_PKG = PKG.parent / "pydsproutines_tpu"
+JAX_MODULES = sorted(
+    str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("*.py")
+    if p.relative_to(JAX_PKG).parts[:2] != ("ops", "pallas"))
+# public names of the JAX package with no counterpart in the port (none)
+NOT_PORTED: set[str] = set()
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_port_has_every_public_def_class_and_method(rel):
+    """Every public top-level def and class of each JAX module outside
+    ``ops/pallas/``, and every public method (and ``__call__``) of each
+    such class, is an attribute of the port's module at the same path,
+    defined there or imported."""
+    surface = _public_surface(JAX_PKG / rel)
+    parts = Path(rel).with_suffix("").parts
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    module = importlib.import_module(".".join(("pydsproutines_tpu_torch",
+                                               *parts)))
+    missing = []
+    for name, methods in surface.items():
+        obj = getattr(module, name, None)
+        if obj is None:
+            missing.append(f"{rel}:{name}")
+            continue
+        missing += [f"{rel}:{name}.{m}" for m in methods
+                    if not hasattr(obj, m)]
+    assert set(missing) == {m for m in NOT_PORTED if m.startswith(rel)}
+
+
 def test_no_source_file_imports_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|pydsproutines_tpu)\b",
                          re.M)
@@ -182,6 +229,27 @@ def test_wrappers_refuse_other_devices():
         fft_peak.stage2_peak(f1, f1[0])
     with pytest.raises(ValueError, match="unsupported device"):
         fft_peak.window_columns(x, x[:64], offs)
+
+
+def test_transform_entry_points_without_cuda_raise():
+    """The WOLA plane instance and ``call_peak``'s kernel raise when there
+    is no GPU and refuse other devices; neither hands the work to a plain
+    twin."""
+    from pydsproutines_tpu_torch.ops.fft import FourStepFFT
+    if torch.cuda.is_available():
+        pytest.skip("CUDA present: this checks the CPU-only behaviour")
+    re, h = torch.zeros(64 * 8), torch.ones(128)
+    counters = (wola_fused.wola_fused_planes, fft_peak.stage2_peak)
+    before = [c.launches for c in counters]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        wola_fused._wola_fused_planes_cuda(h, re, re, 64)
+    meta = torch.zeros(64 * 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        wola_fused.wola_fused_planes(h.to("meta"), meta, meta, 64)
+    with pytest.raises(ValueError, match="unsupported device"):
+        FourStepFFT(4096).call_peak(torch.zeros(4096, dtype=torch.complex64,
+                                                device="meta"))
+    assert [c.launches for c in counters] == before
 
 
 def test_build_sources_are_the_package_csrc():
